@@ -171,32 +171,49 @@ def _ring_check(c, dtype, what):
     return err, tol
 
 
-def _ring_bound_ms(b, nv, dtype):
-    elt = 4 if dtype == "torch.float32" else 2
-    kv_dim = DEC["kv_heads"] * DEC["head_dim"]
-    qd = DEC["heads"] * DEC["head_dim"]
+def _ring_bound(c, dtype):
+    """(ms, "bytes" or "operations"): the least time the card could take for
+    case `c`, from its own inputs. Bytes: q in and out, the positions that
+    decide validity (ring slots below nv, extra columns, queries, nv), and
+    K/V only for the rows that pass the mask (0 <= pos <= q_pos,
+    pos >= q_pos - (window - 1)); a stream whose query position is invalid
+    needs none. Operations: q.k and p.v on those rows."""
+    kw = c["kw"]
+    elt = dtype.itemsize
+    kv_dim = kw["kv_heads"] * kw["head_dim"]
+    qd = kw["heads"] * kw["head_dim"]
+    b, sx = c["xp"].shape
+    nv = int(c["nv"].item())
+    qp = c["q_pos"].long()                           # [B, 1]
+
+    def needed(pos):
+        pos = pos.long()
+        return int(((pos >= 0) & (pos <= qp)
+                    & (pos >= qp - (kw["window"] - 1))).sum().item())
+
+    rows = needed(c["sp"][:, :nv]) + needed(c["xp"])
     nbytes = (2 * b * qd * elt                       # q in, out
-              + 2 * b * (nv + SX) * kv_dim * elt     # K/V rows read
-              + 4 * b * (nv + SX + 1))               # slot/extra/query positions
-    flops = 4 * b * qd * (nv + SX)                   # q.k and p.v
-    return max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
+              + 2 * rows * kv_dim * elt              # K/V rows needed
+              + 4 * (b * (nv + sx + 1) + 1))         # positions, nv
+    flops = 4 * qd * rows                            # q.k and p.v
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase1():
     import torch
     import torch.nn.functional as F
     from voxtral_tpu_torch.ops import ring_attention as ra
-    # the other head dims and group sizes the kernel takes, checked only:
-    # tiny_config's decoder (hd 16, group 2) and hd 64 with group 8 (two
+    # the kernel's other head dim, checked only: hd 64 with group 8 (two
     # blocks of query heads per kv head)
-    for shape in (dict(p=96, sx=5, heads=4, kv_heads=2, head_dim=16),
-                  dict(p=320, sx=9, heads=16, kv_heads=2, head_dim=64)):
-        for nv in (50, shape["p"]):
-            for dtype in (torch.float32, torch.bfloat16):
-                what = f"{shape} nv={nv} {dtype}"
-                c = _ring_case(3, nv, dtype, seed=nv, copies=1, **shape)
-                err, tol = _ring_check(c, dtype, what)
-                log(f"[1] check {what}: max_abs_err {err:.3g} (tol {tol:.3g})")
+    shape = dict(p=320, sx=9, heads=16, kv_heads=2, head_dim=64)
+    for nv in (50, shape["p"]):
+        for dtype in (torch.float32, torch.bfloat16):
+            what = f"{shape} nv={nv} {dtype}"
+            c = _ring_case(3, nv, dtype, seed=nv, copies=1, **shape)
+            err, tol = _ring_check(c, dtype, what)
+            log(f"[1] check {what}: max_abs_err {err:.3g} (tol {tol:.3g})")
     rows = []
     for b in (1, 8):
         for nv in (102, 2048, P_RING):
@@ -240,9 +257,10 @@ def phase1():
                 ms = cuda_ms(kern, 50)
                 plain_ms = cuda_ms(plain, 5)
                 lib_ms = cuda_ms(lib, 20)
+                bound_ms, bound_by = _ring_bound(c, dtype)
                 row = dict(b=b, nv=nv, dtype=str(dtype), max_abs_err=err, tol=tol,
                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=_ring_bound_ms(b, nv, str(dtype)))
+                           bound_ms=bound_ms, bound_by=bound_by)
                 rows.append(row)
                 log(f"[1] ring_gqa_attention {json.dumps(row)}")
                 del c, sdpa_kv
@@ -252,18 +270,6 @@ def phase1():
 # ---------------------------------------------------------------------------
 # Phases 2 and 3: the pipeline
 # ---------------------------------------------------------------------------
-
-def expected_decode_steps(cfg, n_samples: int) -> int:
-    """Decode steps of the offline pipeline for a clip, from the schedule:
-    padding, mel frames (even), conv stride 2, 4x downsample, minus the
-    38 prefilled prompt positions."""
-    from voxtral_tpu_torch.audio.mel import pad_audio_offline
-    n = len(pad_audio_offline(np.zeros(n_samples, np.float32), cfg.audio,
-                              cfg.streaming))
-    frames = n // cfg.audio.hop_length
-    frames -= frames % 2
-    return (frames // 2) // cfg.downsample - (cfg.streaming.prompt_len - 1)
-
 
 def phase2():
     import torch
@@ -278,7 +284,6 @@ def phase2():
     params = random_params(cfg, seed=0, device="cuda")
     params_cpu = _tree_map(lambda t: t.cpu(), params)
     audio = synthetic_audio(5.0, seed=2)
-    steps = expected_decode_steps(cfg, audio.size)
     ra.ring_gqa_attention.launches = 0
     t0 = time.perf_counter()
     tok_g, aux_g = transcribe_tokens_batch(params, cfg, audio, collect_topk=4,
@@ -286,6 +291,7 @@ def phase2():
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
     launches = ra.ring_gqa_attention.launches
+    steps = aux_g["best_logit"].shape[-1]           # decode_scan's n steps
     t0 = time.perf_counter()
     tok_c, aux_c = transcribe_tokens_batch(params_cpu, cfg, audio, collect_topk=4,
                                            device="cpu")
@@ -330,7 +336,6 @@ def phase3():
     for rep in range(2):
         results = []
         for (sec, _), audio in zip(clips, audios):
-            steps = expected_decode_steps(cfg, audio.size)
             before = ra.ring_gqa_attention.launches
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -341,6 +346,7 @@ def phase3():
             wall = time.perf_counter() - t0
             launches = ra.ring_gqa_attention.launches - before
             best = aux["best_logit"][0]
+            steps = best.shape[-1]                  # decode_scan's n steps
             active = aux["packed"][0, :, 0].view(torch.int32) >= 0
             r = dict(pass_=rep, audio_s=sec, decode_steps=steps, tokens=len(tokens),
                      wall_s=wall, ms_per_step=1e3 * wall / steps, rtf=wall / sec,
@@ -357,24 +363,29 @@ def phase3():
     main_launches = ra.ring_gqa_attention.launches   # main path ends here
     for (t1, _), (t2, _) in zip(*passes):
         check(t1 == t2, "tokens differ between the two passes")
-    profile_request(params, cfg, audios[1], wall_s=passes[1][1][1]["wall_s"])
+    profile_request(params, cfg, audios[1], wall_s=passes[1][1][1]["wall_s"],
+                    steps=passes[1][1][1]["decode_steps"])
     return main_launches, [r for results in passes for _, r in results]
 
 
-def profile_request(params, cfg, audio, wall_s):
+def profile_request(params, cfg, audio, wall_s, steps):
     """One more run of a request under torch.profiler: device time by
-    kernel, and the device's busy share of the unprofiled wall time
-    `wall_s` of the same request (one stream, so kernels do not overlap)."""
+    kernel, the device's busy share of the unprofiled wall time `wall_s` of
+    the same request (one stream, so kernels do not overlap), and the
+    device time of each stage the pipeline marks with a profiler range
+    (encoder, prefill, decode_scan; `steps` decode steps)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from voxtral_tpu_torch.models.pipeline import transcribe_tokens_batch
+    stages = ("encoder", "prefill", "decode_scan")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         transcribe_tokens_batch(params, cfg, audio, device="cuda")
         torch.cuda.synchronize()
-    # Kernel rows only. The trace also projects CPU op ranges onto the
-    # device timeline (rows named like the op, e.g. "aten::mm"); those
-    # repeat their kernels' time and are left out of the busy time.
+    # Kernel rows only. The trace also projects CPU op ranges and the
+    # stage ranges onto the device timeline (rows named like the op, e.g.
+    # "aten::mm"); those repeat their kernels' time and are left out of
+    # the busy time.
     avgs = prof.key_averages()
     cpu_keys = {e.key for e in avgs if e.device_type == DeviceType.CPU}
     rows, projected_us = [], 0.0
@@ -388,13 +399,30 @@ def profile_request(params, cfg, audio, wall_s):
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
     ring_us = sum(r[0] for r in rows if "ring_partial" in r[2] or "ring_merge" in r[2])
-    steps = expected_decode_steps(cfg, audio.size)
-    log(f"[3] profile {audio.size / 16000:.1f} s request: device busy "
-        f"{total_us / 1e3:.2f} ms of {wall_s * 1e3:.2f} ms wall "
-        f"(share {total_us / 1e6 / wall_s:.4f}); ring attention "
-        f"{ring_us / 1e3:.3f} ms ({ring_us / (steps * cfg.decoder.layers):.2f} us per launch); "
-        f"device ms per decode step {total_us / 1e3 / steps:.3f}; op ranges "
+    gemv_us = sum(r[0] for r in rows if "nvjet" in r[2] or "splitKreduce" in r[2])
+    # Per stage: the kernels launched inside the stage's range (CPU-side
+    # event with its children), and on the device timeline the span from
+    # the stage's first kernel to its last.
+    busy = {k: 0.0 for k in stages}
+    span = {k: 0.0 for k in stages}
+    for e in prof.events():
+        if e.name in busy:
+            if e.device_type == DeviceType.CPU:
+                busy[e.name] += e.device_time_total
+            else:
+                span[e.name] += e.time_range.elapsed_us()
+    log(f"[3] profile {audio.size / 16000:.1f} s request, {steps} decode steps: "
+        f"device busy {total_us / 1e3:.3f} ms of {wall_s * 1e3:.2f} ms unprofiled wall "
+        f"(share {total_us / 1e6 / wall_s:.4f}; request device ms / decode steps "
+        f"{total_us / 1e3 / steps:.3f}); ring attention {ring_us / 1e3:.3f} ms "
+        f"({ring_us / (steps * cfg.decoder.layers):.2f} us per launch); nvjet + "
+        f"splitKreduce (cuBLAS GEMV) rows {gemv_us / 1e3:.3f} ms; op ranges "
         f"on the device timeline (not counted) {projected_us / 1e3:.2f} ms")
+    for k in stages:
+        log(f"[3]   stage {k}: device busy {busy[k] / 1e3:.3f} ms, device span "
+            f"{span[k] / 1e3:.3f} ms (under the profiler)"
+            + (f"; busy per decode step {busy[k] / 1e3 / steps:.3f} ms"
+               if k == "decode_scan" else ""))
     for us, count, key in rows[:12]:
         log(f"[3]   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
 
@@ -422,7 +450,7 @@ def main() -> int:
         launches=main_launches,
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-        bound_by="bytes", library_ms=rep["library_ms"])]
+        bound_by=rep["bound_by"], library_ms=rep["library_ms"])]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))

@@ -213,6 +213,16 @@ def test_wrapper_refuses_other_modes():
     with pytest.raises(ValueError, match="head_dim"):
         ra.ring_gqa_attention(q, k, v, sp, qp, **{**kw, "head_dim": 48,
                                                   "heads": 8 * 64 // 48})
+    # head_dim 16 (same widths: 32 query heads over 8 kv heads): the plain
+    # version takes it on the CPU; the kernel's launch refuses it before
+    # touching the card
+    kw16 = {**kw, "head_dim": 16, "heads": 32, "kv_heads": 8}
+    ref = ra.ring_gqa_attention_reference(*args, **kw16)
+    torch.testing.assert_close(ra.ring_gqa_attention(*args, **kw16), ref,
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="head_dim 16: the kernel is built"):
+        ra._launch(*args, **kw16, extra_k=None, extra_v=None, extra_pos=None,
+                   n_valid_slots=None)
     many = xk.repeat(1, 40, 1)
     with pytest.raises(ValueError, match="extra columns"):
         ra.ring_gqa_attention(*args, **kw, extra_k=many, extra_v=many,

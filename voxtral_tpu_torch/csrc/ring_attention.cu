@@ -27,7 +27,7 @@
 //   * the read bound nv is a device int32 the blocks read themselves (no
 //     host sync, safe inside a CUDA graph): blocks wholly past nv exit at
 //     once, so early in a stream the kernel reads only the filled prefix;
-//   * K/V rows are read with 16-byte vector loads, one row per 4-32
+//   * K/V rows are read with 16-byte vector loads, one row per 8-32
 //     neighbouring threads, four rows in flight per thread;
 //   * each block writes its f32 (max, sum, unnormalised output); a second
 //     small kernel merges the splits and writes the output in q's dtype.
@@ -41,7 +41,8 @@
 namespace {
 
 constexpr int kThreads = 128;     // 4 warps per block
-constexpr int kSplit = 256;       // ring slots per split (also max extra cols)
+constexpr int kSplit = 256;       // ring slots per split (also max extra cols);
+                                  // _SPLIT_SLOTS in ops/ring_attention.py
 constexpr int kGroupBlock = 4;    // query heads per block (one warp each)
 constexpr int kUnroll = 4;        // rows in flight per thread
 constexpr float kNeg = -1e30f;
@@ -329,7 +330,6 @@ int launch_hd(int head_dim, const void* q, const void* k, const void* v,
     return launch<T, N>(q, k, v, slot_pos, q_pos, xk, xv, x_pos, n_valid, o_part,  \
                         m_part, l_part, out, B, P, Sx, H, Hkv, window, scale, stream);
   switch (head_dim) {
-    VOX_HD_CASE(16)
     VOX_HD_CASE(64)
     VOX_HD_CASE(128)
     default:
@@ -342,13 +342,11 @@ int launch_hd(int head_dim, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Ring slots per split: the caller sizes the partial buffers
-// [B, H, ceil(P / split) + 1] (and x HD for the outputs) from it.
-int ring_gqa_attention_split_slots() { return kSplit; }
-
 // dtype: 0 = float32, 1 = bfloat16 (q, rings, extra columns and out alike).
-// Pointers are device pointers; n_valid is a device int32 scalar. Returns
-// the CUDA error code of the launches (0 = launched).
+// Pointers are device pointers; n_valid is a device int32 scalar. The
+// partial buffers hold [B, H, ceil(P / kSplit) + 1] entries (x HD for
+// o_part), kSplit = 256; Sx must not exceed kSplit. head_dim is 64 or 128.
+// Returns the CUDA error code of the launches (0 = launched).
 int ring_gqa_attention_launch(int dtype, int head_dim, const void* q, const void* k,
                               const void* v, const void* slot_pos, const void* q_pos,
                               const void* xk, const void* xv, const void* x_pos,

@@ -5,13 +5,16 @@ The ground-truth schedule (python_simple_implementation.py:725-861):
 streaming-format padding, host log-mel (drop-odd-frame), batch encoder,
 adapter, 39-token prompt (BOS + STREAMING_PAD*38), prefill of 38 positions,
 then greedy decode within the audio span with EOS stop. Everything after the
-host mel runs on `device`; the tokens come back to the host once.
+host mel runs on `device`; the tokens come back to the host once. Profiler
+ranges "encoder" (stem, encoder, adapter), "prefill" and "decode_scan" mark
+the stages for torch.profiler.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from voxtral_tpu_torch.audio.mel import batch_log_mel, pad_audio_offline
 from voxtral_tpu_torch.config import VoxtralConfig
@@ -35,13 +38,14 @@ def _pipeline(params, cfg: VoxtralConfig, mel: torch.Tensor, delay_tokens: int,
               collect_topk: int = 0):
     """mel: [mel_bins, F] (F even) on the device. Returns (tokens [N], aux)."""
     dev = mel.device
-    h = conv_stem(params["encoder"], mel)
-    trunc = h.shape[0] % cfg.downsample
-    if trunc:
-        h = h[trunc:]
-    h = h.to(cfg.compute_dtype)
-    enc = encoder_forward(params["encoder"], cfg, h)
-    adapter = adapter_forward(params["adapter"], cfg, enc)   # [n_audio, D]
+    with record_function("encoder"):
+        h = conv_stem(params["encoder"], mel)
+        trunc = h.shape[0] % cfg.downsample
+        if trunc:
+            h = h[trunc:]
+        h = h.to(cfg.compute_dtype)
+        enc = encoder_forward(params["encoder"], cfg, h)
+        adapter = adapter_forward(params["adapter"], cfg, enc)   # [n_audio, D]
 
     prompt = torch.from_numpy(prompt_token_ids(cfg, delay_tokens)).to(dev)
     lp = prompt.shape[0]
@@ -49,18 +53,21 @@ def _pipeline(params, cfg: VoxtralConfig, mel: torch.Tensor, delay_tokens: int,
     t_ada = ada_scales(params["decoder"], t_cond)
 
     embed = params["decoder"]["embed"]
-    prefix = (adapter[:lp - 1].float()
-              + embed_lookup(embed, prompt[:lp - 1]))
-    state = init_decode_state(cfg, batch=1, device=dev)
-    state = decoder_prefill(params["decoder"], cfg, state, prefix[None], t_ada)
+    with record_function("prefill"):
+        prefix = (adapter[:lp - 1].float()
+                  + embed_lookup(embed, prompt[:lp - 1]))
+        state = init_decode_state(cfg, batch=1, device=dev)
+        state = decoder_prefill(params["decoder"], cfg, state, prefix[None],
+                                t_ada)
     state = state._replace(prev_token=prompt[lp - 1:lp].to(torch.int32))
 
     frames = adapter[lp - 1:]
     n = frames.shape[0]
-    state, tokens, aux = decode_scan(
-        params["decoder"], cfg, state, frames[None],
-        torch.full((1,), n, dtype=torch.int32, device=dev), t_ada,
-        collect_topk=collect_topk)
+    with record_function("decode_scan"):
+        state, tokens, aux = decode_scan(
+            params["decoder"], cfg, state, frames[None],
+            torch.full((1,), n, dtype=torch.int32, device=dev), t_ada,
+            collect_topk=collect_topk)
     return tokens[0], aux
 
 

@@ -10,9 +10,11 @@ the dispatcher the decoder calls (counterpart of
   after PV. It takes any S and mixed dtypes.
 - `ring_gqa_attention`: the kernel wrapper. It accepts the decode regime
   with float rings (S = 1; q, rings and extra columns all f32 or all bf16;
-  head_dim 16/64/128; at most 256 extra columns) and raises on anything
-  else: int8 rings with scales, int4-packed rings, S > 1. A CUDA tensor
-  launches `csrc/ring_attention.cu`; a CPU tensor takes the plain version.
+  at most 256 extra columns) and raises on anything else: int8 rings with
+  scales, int4-packed rings, S > 1. A CUDA tensor launches
+  `csrc/ring_attention.cu`, which is built for head_dim 64 and 128 (the
+  widths of voxtral_4b) and raises for others; a CPU tensor takes the plain
+  version at any head_dim.
   `ring_gqa_attention.launches` counts kernel launches.
 - `ring_attention`: the decoder's entry point.
 
@@ -34,8 +36,10 @@ import math
 import torch
 
 _NEG = -1e30
-_HEAD_DIMS = (16, 64, 128)        # 16: tiny_config; 64, 128: voxtral_4b
-_MAX_EXTRA = 256          # the kernel's split size (ring_gqa_attention_split_slots)
+_HEAD_DIMS = (64, 128)            # the kernel's instantiations (voxtral_4b)
+# = kSplit in csrc/ring_attention.cu: ring slots per split. It sizes the
+# partial buffers, and the extra columns (one split of their own) fit in it.
+_SPLIT_SLOTS = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -113,16 +117,14 @@ def _check_supported(q, k_ring, v_ring, slot_pos, *, heads, kv_heads,
         raise NotImplementedError(
             f"S = {s} queries per stream: the kernel covers the decode regime "
             "(S = 1); the encoder regime arrives with the fleet slice")
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {head_dim} not in {_HEAD_DIMS}")
     if heads % kv_heads or qd != heads * head_dim:
         raise ValueError(f"q width {qd} does not match heads={heads}, "
                          f"kv_heads={kv_heads}, head_dim={head_dim}")
     tensors = [q, k_ring, v_ring]
     if extra_k is not None:
         tensors += [extra_k, extra_v]
-        if extra_k.shape[1] > _MAX_EXTRA:
-            raise ValueError(f"{extra_k.shape[1]} extra columns > {_MAX_EXTRA}")
+        if extra_k.shape[1] > _SPLIT_SLOTS:
+            raise ValueError(f"{extra_k.shape[1]} extra columns > {_SPLIT_SLOTS}")
         if extra_pos is None or extra_pos.shape != extra_k.shape[:2]:
             raise ValueError("extra_pos must be [B, Sx]")
     if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
@@ -144,15 +146,14 @@ def _lib():
     lib.ring_gqa_attention_launch.argtypes = (
         [ci, ci] + [vp] * 13 + [ci] * 6 + [ctypes.c_float, vp])
     lib.ring_gqa_attention_launch.restype = ci
-    lib.ring_gqa_attention_split_slots.argtypes = []
-    lib.ring_gqa_attention_split_slots.restype = ci
-    if lib.ring_gqa_attention_split_slots() != _MAX_EXTRA:
-        raise RuntimeError("ring_attention.cu split size disagrees with the wrapper")
     return lib
 
 
 def _launch(q, k_ring, v_ring, slot_pos, q_pos, *, window, heads, kv_heads,
             head_dim, extra_k, extra_v, extra_pos, n_valid_slots):
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {head_dim}: the kernel is built for "
+                         f"{_HEAD_DIMS}")
     dev = q.device
     b, _, qd = q.shape
     p = k_ring.shape[1]
@@ -175,7 +176,7 @@ def _launch(q, k_ring, v_ring, slot_pos, q_pos, *, window, heads, kv_heads,
             raise ValueError("ring attention kernel needs contiguous tensors")
     if any(t.data_ptr() % 16 for t in floats):
         raise ValueError("ring attention kernel needs 16-byte aligned tensors")
-    n_parts = -(-p // _MAX_EXTRA) + 1
+    n_parts = -(-p // _SPLIT_SLOTS) + 1
     o_part = torch.empty((b, heads, n_parts, head_dim), dtype=torch.float32,
                          device=dev)
     m_part = torch.empty((b, heads, n_parts), dtype=torch.float32, device=dev)

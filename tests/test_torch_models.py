@@ -250,12 +250,25 @@ def test_forced_tokens_topk_and_packed_aux_match_jax(cfg, tiny_cfg, params, tiny
 
 
 def test_init_decode_state_layout_and_int8_refusal(cfg, tiny_cfg):
-    st = tm.init_decode_state(cfg, batch=3, ring_size=37, pending_size=5, device=CPU)
-    js = jm.init_decode_state(tiny_cfg, batch=3, ring_size=37, pending_size=5)
-    assert st.k_ring[0].shape == js.k_ring[0].shape      # 32-aligned physical
-    assert st.pending_k[0].shape == js.pending_k[0].shape
-    with pytest.raises(NotImplementedError, match="fleet slice"):
-        tm.init_decode_state(cfg, kv_dtype="int8", device=CPU)
+    """Float and int8 DecodeState layouts equal the JAX package's (int8:
+    int8 rings, f32 scale tables of ones, float pending); int4 decoder rings
+    are refused, as in the JAX package."""
+    for kv in ("float", "int8"):
+        st = tm.init_decode_state(cfg, batch=3, ring_size=37, pending_size=5,
+                                  kv_dtype=kv, device=CPU)
+        js = jm.init_decode_state(tiny_cfg, batch=3, ring_size=37, pending_size=5,
+                                  kv_dtype=kv)
+        for name in ("k_ring", "v_ring", "pending_k", "pending_v", "k_scale",
+                     "v_scale"):
+            t, j = getattr(st, name), getattr(js, name)
+            assert (t is None) == (j is None), name
+            if t is not None:
+                assert len(t) == len(j) and tuple(t[0].shape) == j[0].shape, name
+                assert str(t[0].dtype).split(".")[-1] == str(j[0].dtype), name
+                np.testing.assert_array_equal(t[0].numpy(), np.asarray(j[0]))
+        np.testing.assert_array_equal(st.slot_pos.numpy(), np.asarray(js.slot_pos))
+    with pytest.raises(ValueError, match="encoder-only"):
+        tm.init_decode_state(cfg, kv_dtype="int4", device=CPU)
 
 
 def test_pipeline_tokens_match_fixture_and_jax(cfg, tiny_cfg, params, tiny_params):

@@ -9,8 +9,11 @@
 The JAX package `voxtral_tpu` is the reference each module is tested
 against; module and function names follow it. Entry points take
 `device=` (default "cuda") and raise when CUDA is missing unless the caller
-asks for "cpu". The ring-attention decode kernel is hand-written CUDA
-(`csrc/ring_attention.cu`), built with nvcc at first use.
+asks for "cpu". The ring-attention kernels are hand-written CUDA
+(`csrc/ring_attention.cu`: decode regime, float and int8 rings;
+`csrc/ring_attention_enc.cu`: encoder regime, float, int8 and int4 rings),
+built with nvcc at first use. The multi-stream serving step is
+`voxtral_tpu_torch.runtime.fleet`.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ Each source under `voxtral_tpu_torch/csrc/` is compiled with nvcc for
 `sm_90a` into a shared library with a plain `extern "C"` launcher, loaded
 with ctypes (no PyTorch headers, so a build takes seconds). Libraries go to
 `build/kernels/` at the root of the checkout (listed in .gitignore), named
-by a hash of the source and flags, so an edited source is rebuilt and a
-built one is reused. Building happens at first use, never at import.
+by a hash of the source, the shared headers and the flags, so an edited
+source or header is rebuilt and a built one is reused. Building happens at
+first use, never at import.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("ring_attention.cu",)
+SOURCES = ("ring_attention.cu", "ring_attention_enc.cu")
+HEADERS = ("ring_common.cuh",)          # included by the sources
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
@@ -37,8 +39,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for name in (source, *HEADERS):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest[:12]}.so")
 

@@ -22,7 +22,11 @@ feedback stays on the device (no .item()/.cpu() per token; EOS is the
 `done` mask, so the loop always runs N steps). The fold and the prefill
 write the rings IN PLACE (`index_copy_` at a device-side offset): a state
 passed to decode_scan/decoder_prefill must not be used again afterwards.
-Only float rings are ported; int8 rings arrive with the fleet slice.
+
+kv_dtype="int8": rings are int8 codes with per-(slot, kv-head) f32 scale
+tables [B, Hkv, P]; the pending block stays float and is quantized at fold
+time (quant.py:quantize_kv), the prefill quantizes as it writes. The ring
+attention applies the scales to score and probability columns.
 
 Lockstep caveat (as in the JAX package): the shared cursor advances by the
 longest active prefix over the batch, so a stream that idles while
@@ -42,6 +46,7 @@ from voxtral_tpu_torch.ops import apply_rope, rms_norm, rope_angles
 from voxtral_tpu_torch.ops.attention import windowed_attention
 from voxtral_tpu_torch.ops.linear import embed_logits, embed_lookup, linear
 from voxtral_tpu_torch.ops.ring_attention import ring_attention
+from voxtral_tpu_torch.quant import quantize_kv
 from voxtral_tpu_torch.utils import resolve_device
 
 SLOT_INVALID = -(1 << 30)
@@ -91,11 +96,11 @@ class DecodeState(NamedTuple):
     (P = R + Np). pending_*: the most recent chunk's KV, not yet folded into
     the rings; write_ctr is the ring slot where pending column 0 lands;
     pending_adv is how far the cursor advances after the fold. Scalars are
-    0-dim int32 tensors on the state's device. k_scale/v_scale are None
-    (float rings only)."""
+    0-dim int32 tensors on the state's device. k_scale/v_scale: int8 rings
+    only, None for float rings."""
     k_ring: tuple          # L x [B, P, Hkv*hd]
     v_ring: tuple          # L x [B, P, Hkv*hd]
-    k_scale: tuple | None  # int8 rings only (not ported): always None
+    k_scale: tuple | None  # L x [B, Hkv, P] f32 (int8 mode only)
     v_scale: tuple | None
     slot_pos: torch.Tensor    # [B, P] int32 logical position per slot
     pending_k: tuple          # L x [B, Np, Hkv*hd]
@@ -114,11 +119,12 @@ def init_decode_state(cfg: VoxtralConfig, batch: int = 1, dtype=None,
                       kv_dtype: str = "float",
                       device="cuda") -> DecodeState:
     """ring_size (the cursor modulus R) defaults to window + pending_size so
-    pending folds can never clobber an in-window slot."""
-    if kv_dtype != "float":
-        raise NotImplementedError(
-            f"kv_dtype={kv_dtype!r}: int8 decoder rings arrive with the fleet "
-            "slice; the port has float rings only")
+    pending folds can never clobber an in-window slot. kv_dtype: "float" or
+    "int8" (int4 rings are encoder-only, as in the JAX package)."""
+    if kv_dtype not in ("float", "int8"):
+        raise ValueError(
+            f"decoder kv_dtype must be 'float' or 'int8', got {kv_dtype!r} "
+            "(int4 rings are encoder-only: pass enc_kv_dtype='int4')")
     dev = resolve_device(device)
     d = cfg.decoder
     dt = dtype or cfg.compute_dtype
@@ -131,15 +137,23 @@ def init_decode_state(cfg: VoxtralConfig, batch: int = 1, dtype=None,
         ring += 32 - phys % 32
         phys = ring + pending_size
     i32 = torch.int32
+    int8 = kv_dtype == "int8"
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dt, device=dev)
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
 
+    def scales():
+        return tuple(torch.ones((batch, d.kv_heads, phys), dtype=torch.float32,
+                                device=dev) for _ in range(d.layers))
+
+    ring_dt = torch.int8 if int8 else dt
     return DecodeState(
-        k_ring=tuple(zeros(batch, phys, d.kv_dim) for _ in range(d.layers)),
-        v_ring=tuple(zeros(batch, phys, d.kv_dim) for _ in range(d.layers)),
-        k_scale=None,
-        v_scale=None,
+        k_ring=tuple(zeros(batch, phys, d.kv_dim, dtype=ring_dt)
+                     for _ in range(d.layers)),
+        v_ring=tuple(zeros(batch, phys, d.kv_dim, dtype=ring_dt)
+                     for _ in range(d.layers)),
+        k_scale=scales() if int8 else None,
+        v_scale=scales() if int8 else None,
         slot_pos=torch.full((batch, phys), SLOT_INVALID, dtype=i32, device=dev),
         pending_k=tuple(zeros(batch, pending_size, d.kv_dim)
                         for _ in range(d.layers)),
@@ -171,22 +185,51 @@ def reset_streams(state: DecodeState, mask: torch.Tensor, bos_token: int = 1,
         done=torch.where(mask, False, state.done))
 
 
+def retained_window(state: DecodeState, window: int) -> torch.Tensor:
+    """Per-stream count of in-window KV entries actually present (ring +
+    pending): the checkable form of the lockstep-lag caveat. A stream
+    advancing every step retains min(pos, window, ring); a stream that idles
+    while siblings decode has its oldest slots recycled by the shared cursor
+    and this count shrinks below its nominal window. Returns [B] int32."""
+    lo = state.pos[:, None] - window
+    hi = state.pos[:, None]
+
+    def count(sp):
+        return ((sp >= lo) & (sp < hi)).sum(dim=1)
+
+    return (count(state.slot_pos) + count(state.pending_sp)).to(torch.int32)
+
+
+def _write_slots(rings, scales, vals, idx, kv_heads, head_dim):
+    """Write `vals` (L x [B, N, K] float) into slots `idx` of each ring, in
+    place; int8 rings (scales not None) take quantize_kv's codes and
+    scales."""
+    for l, (r, x) in enumerate(zip(rings, vals)):
+        if scales is None:
+            r.index_copy_(1, idx, x.to(r.dtype))
+        else:
+            qv, qs = quantize_kv(x, kv_heads, head_dim)
+            r.index_copy_(1, idx, qv)
+            scales[l].index_copy_(2, idx, qs)
+
+
 def _fold_pending(state: DecodeState, kv_heads: int, head_dim: int):
     """Fold the pending chunk into the rings — one in-place copy per ring at
     slot ctr % R, issued before any ring read (the overflow margin
-    guarantees it never wraps). The slot offset stays on the device.
-    Returns (k_rings, v_rings, k_scales, v_scales, slot_pos, base) with
-    base = cursor for the next chunk."""
+    guarantees it never wraps). The slot offset stays on the device. Int8
+    rings: the float pending is quantized here; its scales land in the scale
+    tables at the same slots. Returns (k_rings, v_rings, k_scales, v_scales,
+    slot_pos, base) with base = cursor for the next chunk."""
     np_ = state.pending_sp.shape[1]
     ring = state.k_ring[0].shape[1] - np_
     slot = torch.remainder(state.write_ctr, ring)
     idx = slot.long() + torch.arange(np_, device=slot.device)
-    for r, p in zip(state.k_ring, state.pending_k):
-        r.index_copy_(1, idx, p)
-    for r, p in zip(state.v_ring, state.pending_v):
-        r.index_copy_(1, idx, p)
+    _write_slots(state.k_ring, state.k_scale, state.pending_k, idx, kv_heads,
+                 head_dim)
+    _write_slots(state.v_ring, state.v_scale, state.pending_v, idx, kv_heads,
+                 head_dim)
     sp = state.slot_pos.index_copy(1, idx, state.pending_sp)
-    return (state.k_ring, state.v_ring, None, None, sp,
+    return (state.k_ring, state.v_ring, state.k_scale, state.v_scale, sp,
             state.write_ctr + state.pending_adv)
 
 
@@ -258,10 +301,9 @@ def decoder_prefill(dec_params: dict, cfg: VoxtralConfig, state: DecodeState,
         row_pos = torch.roll(row_pos[:, s - ring:], shift, dims=1)
 
     n = row_pos.shape[1]                    # slots 0..min(S, ring)-1
-    for r, x in zip(state.k_ring, k_all):
-        r[:, :n] = x
-    for r, x in zip(state.v_ring, v_all):
-        r[:, :n] = x
+    idx = torch.arange(n, device=dev)
+    _write_slots(state.k_ring, state.k_scale, k_all, idx, d.kv_heads, d.head_dim)
+    _write_slots(state.v_ring, state.v_scale, v_all, idx, d.kv_heads, d.head_dim)
     slot_pos = state.slot_pos.clone()
     slot_pos[:, :n] = row_pos
     return state._replace(
@@ -360,6 +402,8 @@ def decode_scan(dec_params: dict, cfg: VoxtralConfig, state: DecodeState,
                 q.reshape(b, 1, d.q_dim), k_rings[l], v_rings[l], ring_sp,
                 pos[:, None], window=d.window, heads=d.heads,
                 kv_heads=d.kv_heads, head_dim=d.head_dim,
+                k_scale=None if k_ss is None else k_ss[l],
+                v_scale=None if v_ss is None else v_ss[l],
                 extra_kv=(chunk_k[l], chunk_v[l], chunk_pos),
                 n_valid_slots=nv_slots)                           # [B, 1, Qd]
             h = h + linear(attn, lp["wo"])

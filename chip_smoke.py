@@ -14,25 +14,33 @@ Phases (any failure raises and the script exits non-zero):
      decode rings with scales) at the fleet decoder's shapes; K1-enc
      (encoder regime: float, int8 and int4 rings) at the fleet encoder's
      shapes. Every case has a wrapped slot table and a fully masked query
-     row, and an all-masked call must return zeros.
+     row, and an all-masked call must return zeros. K2 (W8A16 GEMV) at the
+     decoder's five Q8 matrix shapes, M = 1 and 16, f32 and bf16 (and the
+     prefill's M = 38, the largest M = 64); K3 (fused tied logits + argmax)
+     in argmax and logits mode on int8 and bf16 tables at B = 1 and 16, an
+     f32 table, f32 queries, and constructed ties (the first index wins).
   2. Offline, reduced depth (2 encoder + 2 decoder layers), full 4B width,
-     f32: transcribe_tokens_batch on cuda (kernel) and on cpu (plain
-     version) must give equal tokens and best logits.
+     f32: transcribe_tokens_batch on cuda (kernels) and on cpu (plain
+     versions) must give equal tokens and best logits, with float weights
+     and with Q8 weights (quantize_params: K2 and K3 on the card).
   3. Offline serving at full 4B width and depth in bf16: three requests
      (about 3 s, 8 s and 15 s of audio), run twice; tokens must be
      identical, and K1's launch count must equal 26 x decode steps.
   4. The fleet step, reduced depth (2+2 layers), full width, f32, B = 2, in
-     the three ring modes (float; int8; int8 decoder + int4 encoder): a
-     bootstrap and 4 masked steps (one with stream 1 inactive, one forced
-     token, an f32 wire and an s16 wire) on cuda and on cpu. Tokens must be
-     equal (int8/int4: unless the cpu run's top-2 logit gap at the first
+     the three ring modes (float; int8; int8 decoder + int4 encoder) and
+     the Q8 mode (Q8 weights with int8 + int4 rings): a bootstrap and 4
+     masked steps (one with stream 1 inactive, one forced token, an f32
+     wire and an s16 wire) on cuda and on cpu. Tokens must be equal
+     (quantized rings: unless the cpu run's top-2 logit gap at the first
      differing step is below 1e-2); in float mode stream 0's tokens must
      equal transcribe_tokens_batch's on the same clip.
   5. The fleet step at full 4B width and depth in bf16: B = 16 streams of
      different clips, 160-mel chunks (20 tokens per step), dec_ring 2048,
-     enc_ring 840, each ring mode: bootstrap, 5 steps, one step on an aged
-     state (both rings read whole), run twice (tokens identical), with each
-     kernel's launches checked per step and one profiled step.
+     enc_ring 840, each mode (the Q8 mode from quantize_params of the bf16
+     tree, last): bootstrap, 5 steps, one step on an aged state (both rings
+     read whole), run twice (tokens identical), with every kernel's
+     launches (and the Q8 large-M route's calls) checked per step and one
+     profiled step.
 The next-to-last lines are the card's name/power limit and one JSON object
 with each kernel's numbers; the last line is the run's result as JSON.
 Weights are random (seeded): tokens are meaningless but deterministic.
@@ -265,6 +273,16 @@ def _ring_check(c, dtype, what, kernel):
     return err, tol
 
 
+def _bound(nbytes, flops, dtype):
+    """(bytes_ms, ops_ms, bound_ms, "bytes" or "operations"): the bytes over
+    3.35 TB/s, the operations over the peak rate of `dtype`'s products, and
+    the larger of the two."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
+    return t_bytes, t_ops, *((t_bytes, "bytes") if t_bytes >= t_ops
+                             else (t_ops, "operations"))
+
+
 def _ring_bound(c, dtype):
     """(bytes_ms, ops_ms, ms, "bytes" or "operations") from case `c`'s own
     inputs. Bytes: q in and out, the positions that decide validity (ring
@@ -296,10 +314,7 @@ def _ring_bound(c, dtype):
               + 2 * int(m_x.any(1).sum()) * kv_dim * elt
               + 4 * (b * (nv + sx + s) + 1))
     flops = 4 * qd * int(m_ring.sum() + m_x.sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[str(dtype)] * 1e3
-    return t_bytes, t_ops, *((t_bytes, "bytes") if t_bytes >= t_ops
-                             else (t_ops, "operations"))
+    return _bound(nbytes, flops, dtype)
 
 
 def _ring_sdpa(c, i):
@@ -417,54 +432,266 @@ def phase1_fleet():
     return rows
 
 
+# The decoder's seven Q8 matrices, five shapes (K, N): wq, wk and wv, wo,
+# w1 and w3, w2.
+K2_SHAPES = {"wq": (3072, 4096), "wk/wv": (3072, 1024), "wo": (4096, 3072),
+             "w1/w3": (3072, 9216), "w2": (9216, 3072)}
+VOCAB, DIM = 131072, 3072
+
+
+def _k2_row(name, k, n, m, dtype, seed, timed):
+    """K2 (w8a16_gemv) against q8_matmul_plain on x [m, k] and Q8 weights
+    [k, n] quantized from N(0, 0.02). Tolerance: f32 1e-5 of max|y| (same
+    products, another summation order); bf16 one bf16 ulp of max|y| (the
+    order can move a value across a rounding boundary) plus the same
+    1e-5 term. If `timed`: the kernel's, the plain version's and the
+    yardstick's CUDA-graph times over weight copies that exceed the L2, and
+    the bound (weight codes, scales, x and y once; 2 m k n operations at
+    the rate of x's dtype). The yardstick is torch.mm of the same x with a
+    bf16 weight of the same shape: twice the weight bytes."""
+    import torch
+    from voxtral_tpu_torch.ops import q8_matmul as qm
+    from voxtral_tpu_torch.quant import quantize_torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    copies = max(1, min(8, -(-160 * 2**20 // (k * n)))) if timed else 1
+    ws = [quantize_torch(torch.randn(k, n, generator=g, device="cuda") * 0.02)
+          for _ in range(copies)]
+    x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+    before = qm.LAUNCHES["w8a16_gemv"]
+    y = qm.w8a16_gemv(x, ws[0].q, ws[0].s)
+    y2 = qm.w8a16_gemv(x, ws[0].q, ws[0].s)
+    ref = qm.q8_matmul_plain(x, ws[0].q, ws[0].s)
+    torch.cuda.synchronize()
+    check(qm.LAUNCHES["w8a16_gemv"] == before + 2, f"K2 {name}: not launched")
+    check(torch.isfinite(y).all().item(), f"K2 {name}: non-finite output")
+    check(torch.equal(y, y2), f"K2 {name}: two launches differ")
+    mx = ref.float().abs().max().item()
+    err = (y.float() - ref.float()).abs().max().item()
+    tol = 1e-5 * mx
+    if dtype == torch.bfloat16:
+        tol += 2.0 ** (np.floor(np.log2(mx)) - 7)
+    what = f"K2 {name} (K {k}, N {n}) M={m} {dtype}"
+    check(err <= tol, f"{what}: err {err} > tol {tol}")
+    row = dict(kernel="w8a16_gemv", matrix=name, k=k, n=n, b=m, dtype=str(dtype),
+               max_abs_err=err, tol=tol)
+    if timed:
+        elt = dtype.itemsize
+        bytes_ms, ops_ms, bound_ms, bound_by = _bound(
+            k * n + 4 * n + m * k * elt + m * n * elt, 2 * m * k * n, dtype)
+        wb = [torch.randn(k, n, generator=g, device="cuda").to(dtype) for _ in range(copies)]
+        row.update(
+            ms=cuda_ms(lambda i: qm.w8a16_gemv(x, ws[i % copies].q, ws[i % copies].s), 50),
+            plain_ms=cuda_ms(lambda i: qm.q8_matmul_plain(x, ws[i % copies].q,
+                                                          ws[i % copies].s), 5),
+            library_ms=cuda_ms(lambda i: torch.mm(x, wb[i % copies]), 50),
+            library="torch.mm, bf16 weight", bytes_ms=bytes_ms, ops_ms=ops_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
+        del wb
+    log(f"[1] {what}: {json.dumps(row)}")
+    return row
+
+
+def _k3_row(table_kind, b, mode, seed, timed, v=VOCAB, h_dtype=None, tie=False):
+    """K3 (fused_logits_argmax) in `mode` ("argmax" or "logits") against its
+    plain version, table "int8" (codes + per-row scales), "bf16" or "f32"
+    [v, 3072], h [b, 3072] bf16 (f32 for an f32 table). Logits within 1e-5
+    of max|logit| (another summation order). Tokens equal the plain
+    version's, except a stream whose plain top-two gap is <= 1e-5 of
+    max|logit|. `tie`: rows 5000 and 90000 repeat row 300, which every h is
+    built to prefer: the first index must win. If `timed`: CUDA-graph times
+    of the kernel, the plain version and (bf16 table) the yardstick
+    torch.mm(h, T.t(), out_dtype=f32) [+ torch.argmax: two calls], and the
+    bound (table, scales, h and the output once; 2 b v d operations at the
+    rate of h's dtype)."""
+    import torch
+    from voxtral_tpu_torch.ops import logits_argmax as la
+    from voxtral_tpu_torch.quant import quantize_torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    h_dtype = h_dtype or (torch.float32 if table_kind == "f32" else torch.bfloat16)
+    w = torch.randn(v, DIM, generator=g, device="cuda") * 0.05
+    h = torch.randn(b, DIM, generator=g, device="cuda")
+    if tie:
+        w[300] = h.sign().sum(0).sign() * 0.2
+        w[5000] = w[90000] = w[300]
+    if table_kind == "int8":
+        qt = quantize_torch(w, 0)
+        table, scales = qt.q, qt.s
+    else:
+        table = w.to(torch.float32 if table_kind == "f32" else torch.bfloat16)
+        scales = None
+    del w
+    h = h.to(h_dtype)
+    logits = mode == "logits"
+    before = la.LAUNCHES["fused_logits_argmax"]
+    out = la.fused_logits_argmax(h, table, scales, logits=logits)
+    out2 = la.fused_logits_argmax(h, table, scales, logits=logits)
+    ref_logits = la.tied_logits_plain(h, table, scales)
+    torch.cuda.synchronize()
+    check(la.LAUNCHES["fused_logits_argmax"] == before + 2, "K3: not launched")
+    check(torch.equal(out, out2), "K3: two launches differ")
+    mx = ref_logits.abs().max().item()
+    what = f"K3 {mode} {table_kind} table V={v} B={b} h {h_dtype}" + (" tie" if tie else "")
+    row = dict(kernel="fused_logits_argmax", mode=mode, table=table_kind, v=v, b=b,
+               dtype=str(h_dtype), tie=tie)
+    if logits:
+        err = (out - ref_logits).abs().max().item()
+        tol = 1e-5 * mx
+        check(err <= tol, f"{what}: err {err} > tol {tol}")
+        row.update(max_abs_err=err, tol=tol)
+    else:
+        ref = torch.argmax(ref_logits, dim=-1).to(torch.int32)
+        top2 = torch.topk(ref_logits, 2, dim=-1).values
+        near = (top2[:, 0] - top2[:, 1]) <= 1e-5 * mx
+        bad = (out != ref) & ~near
+        check(not bad.any().item(), f"{what}: tokens {out.tolist()} != {ref.tolist()}")
+        if tie:
+            check(bool((out == 300).all()), f"{what}: first index lost the tie: {out.tolist()}")
+        row.update(max_abs_err=float(((out != ref) & ~near).sum().item()), tol=0.0,
+                   near_ties=int(near.sum().item()))
+    if timed:
+        elt, h_elt = table.element_size(), h.element_size()
+        nbytes = v * DIM * elt + (4 * v if scales is not None else 0) + b * DIM * h_elt \
+            + (4 * b * v if logits else 4 * b)
+        bytes_ms, ops_ms, bound_ms, bound_by = _bound(nbytes, 2 * b * v * DIM, h_dtype)
+        lib = None
+        if table_kind == "bf16":
+            if logits:
+                lib = cuda_ms(lambda i: torch.mm(h, table.t(), out_dtype=torch.float32), 20)
+            else:
+                lib = cuda_ms(lambda i: torch.argmax(
+                    torch.mm(h, table.t(), out_dtype=torch.float32), dim=-1), 20)
+        plain = la.tied_logits_plain if logits else la.logits_argmax_plain
+        row.update(
+            ms=cuda_ms(lambda i: la.fused_logits_argmax(h, table, scales, logits=logits), 20),
+            plain_ms=cuda_ms(lambda i: plain(h, table, scales), 3),
+            library_ms=lib, library=None if lib is None else
+            "torch.mm(out_dtype=f32)" + ("" if logits else " + torch.argmax (two calls)"),
+            bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[1] {what}: {json.dumps(row)}")
+    return row
+
+
+def phase1_q8():
+    """K2 at the decoder's five Q8 shapes (M = 1 offline, 16 fleet; f32 and
+    bf16, bf16 timed; M = 38, the prefill's rows, and 64, the kernel's
+    largest, checked), and K3 in both modes on int8 and bf16 tables at B = 1
+    and 16 (timed), an f32 table at a small V and a constructed tie
+    (checked). Returns the rows."""
+    import torch
+    rows, seed = [], 500
+    for name, (k, n) in K2_SHAPES.items():
+        for m in (1, 16):
+            for dtype in (torch.float32, torch.bfloat16):
+                seed += 1
+                rows.append(_k2_row(name, k, n, m, dtype, seed, dtype == torch.bfloat16))
+    rows.append(_k2_row("wq", *K2_SHAPES["wq"], 38, torch.bfloat16, 590, False))
+    rows.append(_k2_row("w2", *K2_SHAPES["w2"], 64, torch.float32, 591, False))
+    for table in ("int8", "bf16"):
+        for b in (1, 16):
+            for mode in ("argmax", "logits"):
+                seed += 1
+                rows.append(_k3_row(table, b, mode, seed, True))
+    for mode in ("argmax", "logits"):
+        rows.append(_k3_row("f32", 2, mode, 600, False, v=4096))
+        rows.append(_k3_row("int8", 3, mode, 601, False, h_dtype=torch.float32))
+    rows.append(_k3_row("int8", 16, "argmax", 602, False, tie=True))
+    rows.append(_k3_row("bf16", 3, "argmax", 603, False, tie=True))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phases 2 and 3: the pipeline
 # ---------------------------------------------------------------------------
 
+def _reset_counts():
+    """Every launch count of the port to 0 (and the Q8 large-M route's)."""
+    from voxtral_tpu_torch.ops import logits_argmax as la
+    from voxtral_tpu_torch.ops import q8_matmul as qm
+    from voxtral_tpu_torch.ops import ring_attention as ra
+    for mod in (ra, qm, la):
+        mod.reset_launches()
+
+
+def _counts():
+    """{kernel: launches} of every kernel, and "q8_mm": the Q8 large-M
+    route's calls (not a kernel)."""
+    from voxtral_tpu_torch.ops import logits_argmax as la
+    from voxtral_tpu_torch.ops import q8_matmul as qm
+    from voxtral_tpu_torch.ops import ring_attention as ra
+    return {**ra.LAUNCHES, **qm.LAUNCHES, **la.LAUNCHES, **qm.LARGE_M_CALLS}
+
+
 def phase2():
+    """2+2 layers at full width, f32: transcribe_tokens_batch on cuda against
+    cpu, with float weights and with Q8 weights (quantize_params of the same
+    tree: K2 in the decode and the prefill, K3's logits mode in the greedy
+    head with collect_topk)."""
     import torch
     from voxtral_tpu_torch.config import voxtral_4b
     from voxtral_tpu_torch.models.pipeline import transcribe_tokens_batch
-    from voxtral_tpu_torch.ops import ring_attention as ra
+    from voxtral_tpu_torch.quant import quantize_params
     from voxtral_tpu_torch.weights import random_params
     base = voxtral_4b()
     cfg = dataclasses.replace(
         base, encoder=dataclasses.replace(base.encoder, layers=2),
         decoder=dataclasses.replace(base.decoder, layers=2))
     params = random_params(cfg, seed=0, device="cuda")
-    params_cpu = _tree_map(lambda t: t.cpu(), params)
     audio = synthetic_audio(5.0, seed=2)
-    ra.reset_launches()
-    t0 = time.perf_counter()
-    tok_g, aux_g = transcribe_tokens_batch(params, cfg, audio, collect_topk=4,
-                                           device="cuda")
-    torch.cuda.synchronize()
-    t_gpu = time.perf_counter() - t0
-    launches = ra.LAUNCHES["ring_gqa_attention"]
-    steps = aux_g["best_logit"].shape[-1]           # decode_scan's n steps
-    t0 = time.perf_counter()
-    tok_c, aux_c = transcribe_tokens_batch(params_cpu, cfg, audio, collect_topk=4,
-                                           device="cpu")
-    t_cpu = time.perf_counter() - t0
-    best_g, best_c = aux_g["best_logit"].cpu(), aux_c["best_logit"]
-    active = aux_c["packed"][..., 0].view(torch.int32) >= 0
-    err = (best_g - best_c)[active].abs().max().item()
-    log(f"[2] 2+2 layers f32, {audio.size / 16000:.1f} s audio, {steps} decode "
-        f"steps: {len(tok_g)} tokens; cuda {t_gpu:.2f} s, cpu {t_cpu:.2f} s; "
-        f"best_logit max abs diff {err:.3g}; kernel launches {launches}")
-    check(launches == cfg.decoder.layers * steps,
-          f"launches {launches} != {cfg.decoder.layers} x {steps}")
-    check(tok_g == tok_c, f"cuda tokens {tok_g} != cpu tokens {tok_c}")
-    check(err <= 1e-3, f"best_logit diff {err} > 1e-3")
-    return dict(tokens=len(tok_g), steps=steps, best_logit_err=err)
+    out = {}
+    for weights in ("float", "q8"):
+        if weights == "q8":
+            params = quantize_params(params)
+        params_cpu = _cpu_copy(params)
+        _reset_counts()
+        t0 = time.perf_counter()
+        tok_g, aux_g = transcribe_tokens_batch(params, cfg, audio, collect_topk=4,
+                                               device="cuda")
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        counts = _counts()
+        steps = aux_g["best_logit"].shape[-1]       # decode_scan's n steps
+        t0 = time.perf_counter()
+        tok_c, aux_c = transcribe_tokens_batch(params_cpu, cfg, audio, collect_topk=4,
+                                               device="cpu")
+        t_cpu = time.perf_counter() - t0
+        best_g, best_c = aux_g["best_logit"].cpu(), aux_c["best_logit"]
+        active = aux_c["packed"][..., 0].view(torch.int32) >= 0
+        err = (best_g - best_c)[active].abs().max().item()
+        log(f"[2] {weights} weights, 2+2 layers f32, {audio.size / 16000:.1f} s audio, "
+            f"{steps} decode steps: {len(tok_g)} tokens; cuda {t_gpu:.2f} s, cpu "
+            f"{t_cpu:.2f} s; best_logit max abs diff {err:.3g}; launches {json.dumps(counts)}")
+        check(counts["ring_gqa_attention"] == cfg.decoder.layers * steps,
+              f"K1 launches {counts['ring_gqa_attention']} != {cfg.decoder.layers} x {steps}")
+        q8 = weights == "q8"
+        # the prefill's 38 rows and each decode step's 1 row go to K2
+        want_k2 = 7 * cfg.decoder.layers * (steps + 1) if q8 else 0
+        check(counts["w8a16_gemv"] >= want_k2 and (q8 or counts["w8a16_gemv"] == 0),
+              f"{weights}: K2 launches {counts['w8a16_gemv']}, want >= {want_k2}")
+        check(counts["fused_logits_argmax"] == (steps if q8 else 0),
+              f"{weights}: K3 launches {counts['fused_logits_argmax']}")
+        check(tok_g == tok_c, f"{weights}: cuda tokens {tok_g} != cpu tokens {tok_c}")
+        check(err <= 1e-3, f"{weights}: best_logit diff {err} > 1e-3")
+        out[weights] = dict(tokens=len(tok_g), steps=steps, best_logit_err=err)
+        del params_cpu
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
-def _tree_map(fn, node):
+def _cpu_copy(node):
+    """The param tree on the cpu, for the plain versions. Q8 codes are held
+    as their f32 values (exact: |q| <= 127): the plain versions widen the
+    codes to f32 on every call, which would be the same products on the
+    same values, and at full width (the 131072 x 3072 table on every token)
+    most of the cpu run's time."""
+    from voxtral_tpu_torch.quant import Quantized
+    if isinstance(node, Quantized):
+        return Quantized(node.q.cpu().float(), node.s.cpu(), node.axis)
     if isinstance(node, dict):
-        return {k: _tree_map(fn, v) for k, v in node.items()}
+        return {k: _cpu_copy(v) for k, v in node.items()}
     if isinstance(node, tuple):
-        return tuple(_tree_map(fn, v) for v in node)
-    return fn(node)
+        return tuple(_cpu_copy(v) for v in node)
+    return node.cpu()
 
 
 def phase3():
@@ -482,7 +709,7 @@ def phase3():
     clips = [(3.0, 11), (8.0, 12), (15.0, 13)]
     audios = [synthetic_audio(sec, seed) for sec, seed in clips]
     passes = []
-    ra.reset_launches()                         # main path starts here
+    _reset_counts()                             # main path starts here
     for rep in range(2):
         results = []
         for (sec, _), audio in zip(clips, audios):
@@ -510,11 +737,15 @@ def phase3():
                   "token out of range")
             results.append((tokens, r))
         passes.append(results)
-    main_launches = dict(ra.LAUNCHES)               # main path ends here
+    main_launches = _counts()                       # main path ends here
+    check(main_launches["w8a16_gemv"] == main_launches["fused_logits_argmax"] == 0,
+          f"bf16 weights with collect_topk launched Q8 or fused-head kernels: "
+          f"{main_launches}")
     for (t1, _), (t2, _) in zip(*passes):
         check(t1 == t2, "tokens differ between the two passes")
-    profile_request(params, cfg, audios[1], wall_s=passes[1][1][1]["wall_s"],
-                    steps=passes[1][1][1]["decode_steps"])
+    # the shortest request: the profiler's own work grows with the events
+    profile_request(params, cfg, audios[0], wall_s=passes[1][0][1]["wall_s"],
+                    steps=passes[1][0][1]["decode_steps"])
     return main_launches, [r for results in passes for _, r in results]
 
 
@@ -529,6 +760,7 @@ def profile_request(params, cfg, audio, wall_s, steps):
     from torch.profiler import ProfilerActivity, profile
     from voxtral_tpu_torch.models.pipeline import transcribe_tokens_batch
     stages = ("encoder", "prefill", "decode_scan")
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         transcribe_tokens_batch(params, cfg, audio, device="cuda")
         torch.cuda.synchronize()
@@ -567,7 +799,8 @@ def profile_request(params, cfg, audio, wall_s, steps):
         f"{total_us / 1e3 / steps:.3f}); ring attention {ring_us / 1e3:.3f} ms "
         f"({ring_us / (steps * cfg.decoder.layers):.2f} us per launch); nvjet + "
         f"splitKreduce (cuBLAS GEMV) rows {gemv_us / 1e3:.3f} ms; op ranges "
-        f"on the device timeline (not counted) {projected_us / 1e3:.2f} ms")
+        f"on the device timeline (not counted) {projected_us / 1e3:.2f} ms; profiling "
+        f"took {time.perf_counter() - t0:.1f} s")
     for k in stages:
         log(f"[3]   stage {k}: device busy {busy[k] / 1e3:.3f} ms, device span "
             f"{span[k] / 1e3:.3f} ms (under the profiler)"
@@ -581,8 +814,11 @@ def profile_request(params, cfg, audio, wall_s, steps):
 # Phases 4 and 5: the fleet step
 # ---------------------------------------------------------------------------
 
+# Weight and ring modes; the Q8 mode (Q8 weights, int8 decoder rings, int4
+# encoder rings: the headline serving configuration) comes last, as it
+# quantizes the float weights in place.
 RING_MODES = {"float": ("float", None), "int8": ("int8", None),
-              "int8+int4": ("int8", "int4")}
+              "int8+int4": ("int8", "int4"), "q8+int8+int4": ("int8", "int4")}
 
 
 def _s16_exact(audio: np.ndarray) -> np.ndarray:
@@ -639,18 +875,19 @@ def _fleet_drive(params, cfg, t_ada, streams, mode, plan, device):
 
 def phase4():
     """Fleet, 2+2 layers at full width, f32, B = 2: cuda against cpu in each
-    ring mode; float mode against the offline pipeline."""
+    mode; float mode against the offline pipeline."""
     import torch
     from voxtral_tpu_torch.config import voxtral_4b
     from voxtral_tpu_torch.models.decoder import ada_scales, time_conditioning
     from voxtral_tpu_torch.models.pipeline import transcribe_tokens_batch
+    from voxtral_tpu_torch.quant import quantize_params
     from voxtral_tpu_torch.weights import random_params
     base = voxtral_4b()
     cfg = dataclasses.replace(
         base, encoder=dataclasses.replace(base.encoder, layers=2),
         decoder=dataclasses.replace(base.decoder, layers=2))
     params = random_params(cfg, seed=0, device="cuda")
-    params_cpu = _tree_map(lambda t: t.cpu(), params)
+    params_cpu = _cpu_copy(params)
     ada = {dev: ada_scales(p["decoder"], time_conditioning(
                cfg.streaming.delay_tokens, cfg.decoder.dim, device=dev))
            for dev, p in (("cuda", params), ("cpu", params_cpu))}
@@ -665,9 +902,17 @@ def phase4():
             (on, free, None)]
     batch_tokens, _ = transcribe_tokens_batch(params, cfg, audios[0], device="cuda")
     for mode in RING_MODES:
+        if mode.startswith("q8"):          # the ada MLPs stay float: same t_ada
+            params = quantize_params(params)
+            params_cpu = _cpu_copy(params)
+        _reset_counts()
         t0 = time.perf_counter()
         tok_g, aux_g = _fleet_drive(params, cfg, ada["cuda"], streams, mode, plan, "cuda")
         t_gpu = time.perf_counter() - t0
+        counts = _counts()
+        q8 = mode.startswith("q8")
+        check((counts["w8a16_gemv"] > 0 and counts["q8_mm"] > 0) == q8
+              and counts["fused_logits_argmax"] > 0, f"{mode}: launches {counts}")
         t0 = time.perf_counter()
         tok_c, aux_c = _fleet_drive(params_cpu, cfg, ada["cpu"], streams, mode, plan, "cpu")
         t_cpu = time.perf_counter() - t0
@@ -699,17 +944,17 @@ def phase4():
             f"{bool((tok_g == tok_c).all())}"
             + (f" ({'; '.join(notes)})" if notes else "")
             + f"; stream 0 vs offline pipeline: {fleet0[:m] == list(batch_tokens[:m])} "
-              f"over {m} tokens")
+              f"over {m} tokens; cuda launches {json.dumps(counts)}")
     del params, params_cpu
 
 
 def phase5():
-    """The fleet at full 4B width and depth in bf16, B = 16, each ring mode,
-    run twice. Returns (launches of the counted runs per kernel, results)."""
+    """The fleet at full 4B width and depth in bf16, B = 16, each mode, run
+    twice. Returns (launches of the counted runs per kernel, results)."""
     import torch
     from voxtral_tpu_torch.config import voxtral_4b
     from voxtral_tpu_torch.models.decoder import ada_scales, time_conditioning
-    from voxtral_tpu_torch.ops import ring_attention as ra
+    from voxtral_tpu_torch.quant import quantize_params
     from voxtral_tpu_torch.runtime import fleet as fl
     from voxtral_tpu_torch.weights import random_params
     cfg = voxtral_4b(torch.bfloat16, torch.bfloat16)
@@ -725,10 +970,20 @@ def phase5():
         cfg, [synthetic_audio(12.0, 200 + i) for i in range(b)])).cuda()
     active = torch.ones(b, dtype=torch.bool, device="cuda")
     forced = torch.full((b, n), -1, dtype=torch.int32, device="cuda")
-    total = dict.fromkeys(ra.LAUNCHES, 0)
+    total = dict.fromkeys(_counts(), 0)
     results = {}
     for mode, (kv, ekv) in RING_MODES.items():
         dec_kernel = "ring_gqa_attention" if kv == "float" else "ring_gqa_attention_int8"
+        q8 = mode.startswith("q8")
+        if q8:        # consumes the bf16 tree leaf by leaf; t_ada stays valid
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = quantize_params(params)
+            torch.cuda.synchronize()
+            log(f"[5] quantize_params: {time.perf_counter() - t0:.2f} s, peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, after "
+                f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
         runs = []
         for rep in range(2):
             state = fl.init_fleet_state(cfg, b, enc_ring=ENC_RING, dec_ring=DEC_RING,
@@ -738,17 +993,31 @@ def phase5():
             torch.cuda.reset_peak_memory_stats()
             toks, walls = [], []
 
-            def timed(label, fn, n_dec, n_enc):
-                ra.reset_launches()                 # a main-path run starts
+            def launches(n_dec, n_enc, n_prefill):
+                """Per run of n_dec decode tokens, n_enc K1-enc calls and
+                n_prefill prefilled streams: the decode ring kernel per
+                layer and token, K3 per token; in Q8 mode K2 for the 7
+                matrices per decoder layer and token or prefilled stream
+                (M = 16 or 38 rows), the large-M route for the encoder's 7
+                per K1-enc call (B x 80 rows) and the adapter's 2."""
+                want = dict.fromkeys(total, 0)
+                want[dec_kernel] += layers_d * n_dec
+                want["ring_gqa_attention_enc"] += n_enc
+                want["fused_logits_argmax"] += n_dec
+                if q8:
+                    want["w8a16_gemv"] += 7 * layers_d * (n_dec + n_prefill)
+                    want["q8_mm"] += 7 * n_enc + 2
+                return want
+
+            def timed(label, fn, n_dec, n_enc, n_prefill=0):
+                _reset_counts()                     # a main-path run starts
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 st, tok, _ = fn()
                 torch.cuda.synchronize()
                 walls.append((label, time.perf_counter() - t0))
-                got = dict(ra.LAUNCHES)             # ... and ends
-                want = dict.fromkeys(got, 0)
-                want[dec_kernel] += layers_d * n_dec
-                want["ring_gqa_attention_enc"] += n_enc
+                got = _counts()                     # ... and ends
+                want = launches(n_dec, n_enc, n_prefill)
                 check(got == want, f"{mode} {label}: launches {got} != {want}")
                 for k, v in got.items():
                     total[k] += v
@@ -757,7 +1026,7 @@ def phase5():
 
             state = timed("bootstrap", lambda: fl.fleet_bootstrap_pcm(
                 params, cfg, state, streams[:, :BOOT_MEL * hop], t_ada),
-                BOOT_MEL // 8 - (lp - 1), layers_e * (BOOT_MEL // CHUNK_MEL))
+                BOOT_MEL // 8 - (lp - 1), layers_e * (BOOT_MEL // CHUNK_MEL), b)
             pos = BOOT_MEL * hop
             for step in range(6):
                 if step == 5:
@@ -782,8 +1051,8 @@ def phase5():
                      step_ms=[1e3 * w for w in steady], aged_step_ms=1e3 * walls[-1][1],
                      audio_s_per_s=b * chunk_s * len(steady) / sum(steady),
                      aged_audio_s_per_s=b * chunk_s / walls[-1][1],
-                     launches_per_step={dec_kernel: layers_d * n,
-                                        "ring_gqa_attention_enc": layers_e},
+                     launches_per_step={k: v for k, v in launches(n, layers_e, 0).items()
+                                        if v},
                      peak_gib=peak, device_busy_share=busy)
             log(f"[5] {json.dumps(r)}")
             results[(mode, rep)] = r
@@ -817,27 +1086,29 @@ def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, m
     enc_us = sum(r[0] for r in rows if "ring_enc_kernel" in r[2])
     dec_us = sum(r[0] for r in rows if "ring_partial" in r[2] or "ring_merge" in r[2])
     gemm_us = sum(r[0] for r in rows if "nvjet" in r[2] or "splitKreduce" in r[2]
-                  or "gemm" in r[2].lower())
+                  or "gemm" in r[2].lower() and "w8a16" not in r[2])
+    k2_us = sum(r[0] for r in rows if "w8a16_" in r[2])
+    k3_us = sum(r[0] for r in rows if "logits_kernel" in r[2])
     share = total_us / 1e6 / wall_s
     log(f"[5] profile {mode} (aged state): device busy {total_us / 1e3:.3f} ms of "
         f"{wall_s * 1e3:.2f} ms unprofiled wall (share {share:.4f}); K1-enc "
         f"{enc_us / 1e3:.3f} ms; decode ring kernel {dec_us / 1e3:.3f} ms; "
-        f"GEMM rows {gemm_us / 1e3:.3f} ms")
+        f"cuBLAS GEMM rows {gemm_us / 1e3:.3f} ms; K2 (w8a16) {k2_us / 1e3:.3f} ms; "
+        f"K3 (fused logits argmax) {k3_us / 1e3:.3f} ms")
     for us, count, key in rows[:10]:
         log(f"[5]   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
     return share
 
 
-def _kernel_entry(rows, launches, name, source, pick):
+def _kernel_entry(rows, launches, name, source, replaces, pick):
     """The kernel's entry of the `kernels` line: its launches on the main
     path, its largest error over every phase-1 case, and the numbers of the
-    timed bf16 case at the shape `pick` names."""
+    timed case that `pick` names."""
     mine = [r for r in rows if r["kernel"] == name]
-    rep = next(r for r in mine if r["dtype"] == "torch.bfloat16"
-               and all(r[k] == v for k, v in pick.items()))
+    rep = next(r for r in mine if "ms" in r and all(r[k] == v for k, v in pick.items()))
     return dict(name=name, route="cuda", source="voxtral_tpu_torch/csrc/" + source,
-                replaces="voxtral_tpu/ops/pallas_attention.py:204",
-                launches=launches[name], max_abs_err=max(r["max_abs_err"] for r in mine),
+                replaces=replaces, launches=launches[name],
+                max_abs_err=max(r["max_abs_err"] for r in mine),
                 ms=rep["ms"], plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
                 bound_by=rep["bound_by"], library_ms=rep["library_ms"])
 
@@ -852,25 +1123,33 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase0()
-    rows = phase1() + phase1_fleet()
+    rows = phase1() + phase1_fleet() + phase1_q8()
     log(f"[1] done at {time.perf_counter() - t_start:.1f} s")
     phase2()
+    log(f"[2] done at {time.perf_counter() - t_start:.1f} s")
     launches3, _ = phase3()
     log(f"[3] done at {time.perf_counter() - t_start:.1f} s")
     phase4()
     log(f"[4] done at {time.perf_counter() - t_start:.1f} s")
     launches5, _ = phase5()
     launches = {k: launches3[k] + launches5[k] for k in launches3}
-    log(f"[5] main-path launches (phases 3 and 5): {json.dumps(launches)}")
+    log(f"[5] main-path launches (phases 3 and 5; q8_mm counts the Q8 large-M "
+        f"route's calls): {json.dumps(launches)}")
     for k, v in launches.items():
         check(v > 0, f"the main path launched no {k} kernel")
-    kernels = [   # K1 at the offline pipeline's first decode step
+    attention = "voxtral_tpu/ops/pallas_attention.py:204"
+    kernels = [   # K1 at the offline pipeline's first decode step, in bf16
         _kernel_entry(rows, launches, "ring_gqa_attention", "ring_attention.cu",
-                      dict(b=1, nv=102)),
+                      attention, dict(b=1, nv=102, dtype="torch.bfloat16")),
         _kernel_entry(rows, launches, "ring_gqa_attention_int8", "ring_attention.cu",
-                      dict(b=16, nv=2080)),
+                      attention, dict(b=16, nv=2080)),
         _kernel_entry(rows, launches, "ring_gqa_attention_enc", "ring_attention_enc.cu",
-                      dict(b=16, nv=928, ring="int4")),
+                      attention, dict(b=16, nv=928, ring="int4")),
+        # K2 has no Pallas counterpart: it replaces an XLA mixed-dtype dot
+        _kernel_entry(rows, launches, "w8a16_gemv", "w8a16.cu",
+                      "voxtral_tpu/ops/linear.py:25-29", dict(b=16, matrix="w1/w3")),
+        _kernel_entry(rows, launches, "fused_logits_argmax", "logits_argmax.cu",
+                      "tools/profile_logits.py:57", dict(b=16, table="int8", mode="argmax")),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi_line())

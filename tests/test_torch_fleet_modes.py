@@ -1,10 +1,12 @@
 """The port's serving step (voxtral_tpu_torch.runtime.fleet.fleet_step_masked)
 against the JAX package's over a bootstrap and 12 masked steps, in the three
-ring modes (float; int8; int8 decoder with int4 encoder rings), tiny config,
+ring modes (float; int8; int8 decoder with int4 encoder rings) and in the
+headline serving mode (Q8 weights with int8 + int4 rings), tiny config,
 f32 on the CPU: an inactive stream every fourth step, forced tokens, the
 f32 and the s16 wire. JAX runs the Pallas kernel in interpret mode for
 quantized rings; the port runs the ring attention's plain version."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +15,7 @@ import torch
 from voxtral_tpu.audio.mel import pad_audio_offline
 from voxtral_tpu.models.decoder import ada_scales as jax_ada_scales
 from voxtral_tpu.models.decoder import time_conditioning as jax_time_conditioning
+from voxtral_tpu.quant import quantize_params as jax_quantize_params
 from voxtral_tpu.runtime import fleet as jf
 from voxtral_tpu.weights import random_params as jax_random_params
 from voxtral_tpu_torch.config import tiny_config
@@ -23,7 +26,7 @@ from voxtral_tpu_torch.weights import from_numpy_params
 torch.set_num_threads(2)
 
 MODES = {"float": ("float", None), "int8": ("int8", None),
-         "int8+int4": ("int8", "int4")}
+         "int8+int4": ("int8", "int4"), "q8+int8+int4": ("int8", "int4")}
 T0, T = 320, 64                    # bootstrap and step chunks (mel frames)
 
 
@@ -43,6 +46,16 @@ def setup(tiny_cfg, tiny_params):
     return cfg, params, t_ada, j_ada, streams.astype(np.float32)
 
 
+@pytest.fixture(scope="module")
+def q8_params(tiny_cfg):
+    """The JAX package's Q8 tree of the same random params (quantized from
+    a numpy tree, so no session fixture's buffers are donated), and the
+    port's copy of it. The ada MLPs stay float: t_ada is unchanged."""
+    tree = jax_random_params(tiny_cfg, 1234, numpy_out=True)
+    jq = jax_quantize_params(jax.tree.map(jnp.asarray, tree))
+    return from_numpy_params(jq, "cpu"), jq
+
+
 def _step_inputs(step, pcm, n):
     """Stream 1 idles every fourth step; forced tokens on steps 3 and 8;
     odd steps ride the packed wire (s16 on steps 1 mod 4, else f32)."""
@@ -60,8 +73,10 @@ def _step_inputs(step, pcm, n):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_fleet_step_masked_matches_jax(setup, tiny_cfg, tiny_params, mode):
+def test_fleet_step_masked_matches_jax(setup, q8_params, tiny_cfg, tiny_params, mode):
     cfg, params, t_ada, j_ada, streams = setup
+    if mode.startswith("q8"):
+        params, tiny_params = q8_params
     kv, ekv = MODES[mode]
     hop, n = cfg.audio.hop_length, T // 8
     kw = dict(enc_ring=64, dec_ring=64, max_mel_chunk=T, kv_dtype=kv,

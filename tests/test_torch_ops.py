@@ -93,10 +93,14 @@ def test_embed_logits_bf16_table_returns_f32_accumulation():
 
 
 def test_linear_refuses_non_tensor_weights():
-    with pytest.raises(TypeError, match="quant slice"):
+    """Weights are float tensors or Q8 `Quantized` leaves; anything else
+    (here a numpy array, an arbitrary object) raises."""
+    with pytest.raises(TypeError, match="float tensors and Q8"):
         tlin.linear(torch.zeros(2, 4), np.zeros((4, 4), np.float32))
-    with pytest.raises(TypeError, match="quant slice"):
+    with pytest.raises(TypeError, match="float tensors and Q8"):
         tlin.embed_logits(torch.zeros(2, 4), object())
+    with pytest.raises(TypeError, match="float tensors and Q8"):
+        tlin.embed_lookup(object(), torch.zeros(2, dtype=torch.long))
 
 
 @pytest.mark.parametrize("q_start,kv_start", [(0, 0), (5, 3)])

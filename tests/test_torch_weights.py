@@ -79,8 +79,11 @@ def test_q8_tensors_raise_not_implemented(tmp_path):
     sf = SafetensorsFile(path)
     assert sf.is_q8("w") and not sf.is_q8("b")
     torch.testing.assert_close(sf.tensor("b"), torch.ones(4))
-    with pytest.raises(NotImplementedError, match="quant slice"):
+    # as the JAX package: `tensor` refuses a Q8 name and points to q8_tensor
+    with pytest.raises(ValueError, match="q8_tensor"):
         sf.tensor("w")
+    scales, codes = sf.q8_tensor("w")
+    assert torch.equal(scales, torch.ones(3)) and torch.equal(codes, torch.from_numpy(q))
 
 
 def test_truncated_file_is_rejected(tmp_path):

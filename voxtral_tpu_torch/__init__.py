@@ -9,11 +9,13 @@
 The JAX package `voxtral_tpu` is the reference each module is tested
 against; module and function names follow it. Entry points take
 `device=` (default "cuda") and raise when CUDA is missing unless the caller
-asks for "cpu". The ring-attention kernels are hand-written CUDA
-(`csrc/ring_attention.cu`: decode regime, float and int8 rings;
-`csrc/ring_attention_enc.cu`: encoder regime, float, int8 and int4 rings),
-built with nvcc at first use. The multi-stream serving step is
-`voxtral_tpu_torch.runtime.fleet`.
+asks for "cpu". The kernels are hand-written CUDA, built with nvcc at
+first use: the ring attention (`csrc/ring_attention.cu`: decode regime,
+float and int8 rings; `csrc/ring_attention_enc.cu`: encoder regime, float,
+int8 and int4 rings), the W8A16 GEMV for Q8 weights (`csrc/w8a16.cu`) and
+the fused tied logits + greedy argmax (`csrc/logits_argmax.cu`). Weights
+are float or Q8 (`quant.Quantized`, from `quant.quantize_params` or a Q8
+file). The multi-stream serving step is `voxtral_tpu_torch.runtime.fleet`.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ __version__ = "0.1.0"
 
 def load(model_dir: str, *, dtype=None, device="cuda"):
     """Load the weights of `model_dir/consolidated.safetensors` onto
-    `device`. Returns (params, cfg); dtype defaults to bfloat16."""
+    `device`. Returns (params, cfg); dtype (of the float leaves) defaults
+    to bfloat16. A Q8 file (tools/quantize.py) loads its 2-D tensors as
+    `quant.Quantized` leaves."""
     import os
 
     import torch

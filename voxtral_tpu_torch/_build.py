@@ -24,7 +24,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("ring_attention.cu", "ring_attention_enc.cu")
+SOURCES = ("ring_attention.cu", "ring_attention_enc.cu", "w8a16.cu",
+           "logits_argmax.cu")
 HEADERS = ("ring_common.cuh",)          # included by the sources
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,4 +1,5 @@
-// Shared by the ring attention kernels (ring_attention.cu, ring_attention_enc.cu):
+// Shared by the port's kernels (ring_attention.cu, ring_attention_enc.cu; the
+// conversions and 16-byte loads also by w8a16.cu and logits_argmax.cu):
 // 16-byte loads of a row's elements as f32, and the rounding of the TPU
 // kernel's contract (voxtral_tpu/ops/pallas_attention.py:_attend_block):
 // probabilities are rounded to q's dtype before the PV product, as the TPU

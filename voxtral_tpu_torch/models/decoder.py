@@ -22,6 +22,12 @@ feedback stays on the device (no .item()/.cpu() per token; EOS is the
 `done` mask, so the loop always runs N steps). The fold and the prefill
 write the rings IN PLACE (`index_copy_` at a device-side offset): a state
 passed to decode_scan/decoder_prefill must not be used again afterwards.
+Without `collect_topk` the greedy head is one fused logits + argmax
+(ops/logits_argmax.py), which gives jnp.argmax's token without the [B, V]
+logits.
+
+Weights may be float or Q8 (`quant.Quantized`, through `linear`,
+`embed_lookup` and the greedy head); no code here forks on it.
 
 kv_dtype="int8": rings are int8 codes with per-(slot, kv-head) f32 scale
 tables [B, Hkv, P]; the pending block stays float and is quantized at fold
@@ -45,8 +51,9 @@ from voxtral_tpu_torch.config import VoxtralConfig
 from voxtral_tpu_torch.ops import apply_rope, rms_norm, rope_angles
 from voxtral_tpu_torch.ops.attention import windowed_attention
 from voxtral_tpu_torch.ops.linear import embed_logits, embed_lookup, linear
+from voxtral_tpu_torch.ops.logits_argmax import logits_argmax
 from voxtral_tpu_torch.ops.ring_attention import ring_attention
-from voxtral_tpu_torch.quant import quantize_kv
+from voxtral_tpu_torch.quant import Quantized, dequantize, quantize_kv
 from voxtral_tpu_torch.utils import resolve_device
 
 SLOT_INVALID = -(1 << 30)
@@ -82,9 +89,13 @@ def time_conditioning(delay_tokens: float, dim: int, theta: float = 10000.0,
 
 def ada_scales(dec_params: dict, t_cond: torch.Tensor) -> torch.Tensor:
     """Per-layer ada scales [L, D], computed once per delay setting
-    (voxtral.c:57-79)."""
+    (voxtral.c:57-79). Q8 ada weights (a Q8 file's) are dequantized."""
     tc = t_cond.float()
-    rows = [F.gelu(tc @ lp["ada_down"].float()) @ lp["ada_up"].float()
+
+    def f32w(w):
+        return dequantize(w) if isinstance(w, Quantized) else w.float()
+
+    rows = [F.gelu(tc @ f32w(lp["ada_down"])) @ f32w(lp["ada_up"])
             for lp in dec_params["layers"]]
     return torch.stack(rows)
 
@@ -413,8 +424,11 @@ def decode_scan(dec_params: dict, cfg: VoxtralConfig, state: DecodeState,
                            * linear(x, lp["w3"]), lp["w2"])
 
         hn = rms_norm(h[:, 0], dec_params["norm"], d.norm_eps)
-        logits = embed_logits(hn, embed)                          # [B, V]
-        tok = torch.argmax(logits, dim=-1).to(i32)
+        if collect_topk > 0:
+            logits = embed_logits(hn, embed)                      # [B, V]
+            tok = torch.argmax(logits, dim=-1).to(i32)
+        else:                       # fused logits + argmax (K3 on the card)
+            tok = logits_argmax(hn, embed)
         if forced_tokens is not None:
             forced_i = forced_tokens[:, i]
             tok = torch.where(forced_i >= 0, forced_i, tok)

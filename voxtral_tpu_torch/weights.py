@@ -6,7 +6,10 @@ package's layout, as plain dicts of torch tensors:
   transpose of the safetensors [out, in] layout;
 - "layers" is a tuple of per-layer dicts;
 - norm weights, the conv stem, biases and the ada projections stay float32
-  in every mode; conv weights are [K, C_in, C_out].
+  in every mode; conv weights are [K, C_in, C_out];
+- a Q8 file's 2-D tensors load as `quant.Quantized` leaves: a transposed
+  linear weight as (int8 [in, out], per-out scales), the embedding table as
+  (int8 [vocab, dim], per-vocab-row scales, axis=0).
 
 bf16 is handled by bit view (uint16 -> torch.bfloat16), so neither the
 reader nor `from_numpy_params` needs ml_dtypes or a float round trip.
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from voxtral_tpu_torch.config import VoxtralConfig
+from voxtral_tpu_torch.quant import Quantized
 from voxtral_tpu_torch.utils import resolve_device
 
 ENC_PREFIX = "mm_streams_embeddings.embedding_module.whisper_encoder"
@@ -37,17 +41,13 @@ _DTYPES = {
     "F64": (np.float64, torch.float64), "U8": (np.uint8, torch.uint8),
 }
 
-_Q8_MSG = ("Q8 tensors are not supported by the port yet: they arrive with "
-           "the quant slice (W8A16 kernel)")
-
-
 # ---------------------------------------------------------------------------
 # Safetensors file access
 # ---------------------------------------------------------------------------
 
 class SafetensorsFile:
-    """Reader for a safetensors file (header checks include the custom Q8
-    dtype; reading a Q8 tensor raises)."""
+    """Reader for a safetensors file, including the custom Q8 dtype
+    (`q8_tensor`)."""
 
     def __init__(self, path: str):
         self.path = path
@@ -104,16 +104,28 @@ class SafetensorsFile:
     def is_q8(self, name: str) -> bool:
         return self.header[name]["dtype"] == "Q8"
 
+    def _raw(self, name: str) -> np.ndarray:
+        s, e = self.header[name]["data_offsets"]
+        return self._mmap[self._data_start + s:self._data_start + e]
+
     def tensor(self, name: str) -> torch.Tensor:
-        """Host tensor viewing the mapped file (no copy)."""
+        """Host tensor viewing the mapped file (no copy). A Q8 tensor raises:
+        read it with `q8_tensor`."""
         meta = self.header[name]
         if meta["dtype"] == "Q8":
-            raise NotImplementedError(f"{name}: {_Q8_MSG}")
+            raise ValueError(f"{name} is Q8; use q8_tensor()")
         np_dt, torch_dt = _DTYPES[meta["dtype"]]
-        s, e = meta["data_offsets"]
-        raw = self._mmap[self._data_start + s:self._data_start + e]
-        t = torch.from_numpy(raw.view(np_dt).reshape(meta["shape"]))
+        t = torch.from_numpy(self._raw(name).view(np_dt).reshape(meta["shape"]))
         return t.view(torch_dt) if torch_dt == torch.bfloat16 else t
+
+    def q8_tensor(self, name: str) -> tuple[torch.Tensor, torch.Tensor]:
+        """A Q8 tensor as host views (scales f32 [rows], codes int8
+        [rows, cols]) of its layout [rows f32 scales][rows*cols int8]."""
+        rows, cols = self.header[name]["shape"]
+        raw = self._raw(name)
+        scales = torch.from_numpy(raw[:4 * rows].view(np.float32))
+        q = torch.from_numpy(raw[4 * rows:].view(np.int8).reshape(rows, cols))
+        return scales, q
 
 
 # ---------------------------------------------------------------------------
@@ -169,11 +181,18 @@ _F32_KEYS = {"attn_norm", "ffn_norm", "wq_b", "wv_b", "wo_b", "w2_b",
 def load_params(path: str, cfg: VoxtralConfig, *, device="cuda") -> dict:
     """Load the full Voxtral param tree from a consolidated safetensors file
     onto `device`. Each tensor is copied to the device in its stored dtype,
-    then transposed and cast there."""
+    then transposed and cast there; a Q8 tensor becomes a `Quantized` leaf
+    (codes transposed for a linear weight, scales on the out axis; the
+    untransposed embedding table keeps per-row scales, axis=0)."""
     dev = resolve_device(device)
     sf = SafetensorsFile(path)
 
     def get(name, transpose, dtype):
+        if sf.is_q8(name):
+            s, q = (t.to(dev, copy=True) for t in sf.q8_tensor(name))
+            if transpose:
+                return Quantized(q.t().contiguous(), s)
+            return Quantized(q, s, axis=0)
         t = sf.tensor(name).to(dev, copy=True)   # never alias the map
         if transpose:
             t = t.t()
@@ -216,6 +235,8 @@ def load_params(path: str, cfg: VoxtralConfig, *, device="cuda") -> dict:
 
 def _numpy_to_torch(arr) -> torch.Tensor:
     arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:           # e.g. a read-only view of a jax array
+        arr = arr.copy()
     if arr.dtype.name == "bfloat16":      # ml_dtypes leaf: reinterpret bits
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
@@ -224,10 +245,13 @@ def _numpy_to_torch(arr) -> torch.Tensor:
 def from_numpy_params(tree, device="cuda"):
     """A numpy param tree (e.g. the JAX package's
     `random_params(cfg, seed, numpy_out=True)`) as the port's tree on
-    `device`, bit for bit."""
+    `device`, bit for bit. Leaves that carry `.q`, `.s` and `.axis` (the
+    JAX package's Q8 leaves) become `Quantized` leaves."""
     dev = resolve_device(device)
 
     def walk(node):
+        if all(hasattr(node, a) for a in ("q", "s", "axis")):
+            return Quantized(walk(node.q), walk(node.s), node.axis)
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (tuple, list)):

@@ -19,6 +19,12 @@ Phases (any failure raises and the script exits non-zero):
      prefill's M = 38, the largest M = 64); K3 (fused tied logits + argmax)
      in argmax and logits mode on int8 and bf16 tables at B = 1 and 16, an
      f32 table, f32 queries, and constructed ties (the first index wins).
+     The tools' kernels at the tools' shapes: T1 (wread) at the decoder's
+     Q8 matrices and T11 (rd) at [16, 2088, 1024] rings, bit for bit; T2
+     (pure_stream) at the five merged bf16 tensors, whose per-block word
+     sums must add up to the tensor's (every byte read) and whose time must
+     grow with the bytes; T3 (bf16_matmul) at the same tensors, B = 24,
+     within 1e-4 of max|y|; ragged shapes checked.
   2. Offline, reduced depth (2 encoder + 2 decoder layers), full 4B width,
      f32: transcribe_tokens_batch on cuda (kernels) and on cpu (plain
      versions) must give equal tokens and best logits, with float weights
@@ -41,6 +47,10 @@ Phases (any failure raises and the script exits non-zero):
      read whole), run twice (tokens identical), with every kernel's
      launches (and the Q8 large-M route's calls) checked per step and one
      profiled step.
+  6. The tools path: the three ported profile tools at their defaults
+     (voxtral_tpu_torch.tools: the Q8 roofline through K2, T1 and K3; the
+     bf16 weight stream through torch.matmul, T2 and T3; the ring read
+     ceiling through T11), every launch count checked, their GB/s logged.
 The next-to-last lines are the card's name/power limit and one JSON object
 with each kernel's numbers; the last line is the run's result as JSON.
 Weights are random (seeded): tokens are meaningless but deterministic.
@@ -141,10 +151,13 @@ def phase0():
 # Phase 1: each ring attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def _copies(b, p, row_bytes):
-    """Independent K/V rings for a timing loop to cycle through, so that it
-    reads more bytes than the 50 MB L2 holds (at most 8)."""
-    return max(1, min(8, -(-160 * 2**20 // (2 * b * p * row_bytes))))
+def _l2_copies(nbytes):
+    """Copies of an input of `nbytes` for a timing loop to cycle through:
+    the tools' rule (at least 4x the card's L2 in distinct bytes), at most
+    8 copies."""
+    import torch
+    from voxtral_tpu_torch.tools._timing import copies_beyond_l2, l2_bytes
+    return copies_beyond_l2(nbytes, l2_bytes(torch.device("cuda")), 8)
 
 
 def _ring_case(b, nv, dtype, seed, copies, p=P_RING, sx=SX, heads=DEC["heads"],
@@ -393,7 +406,7 @@ def phase1():
     for b in (1, 8):
         for nv in (102, 2048, P_RING):
             for dtype in (torch.float32, torch.bfloat16):
-                copies = _copies(b, P_RING, 1024 * dtype.itemsize)
+                copies = _l2_copies(2 * b * P_RING * 1024 * dtype.itemsize)
                 c = _ring_case(b, nv, dtype, seed=timed, copies=copies)
                 rows.append(_ring_row(c, dtype, f"K1 B={b} nv={nv} {dtype}", k1, True))
                 timed += 1
@@ -424,7 +437,7 @@ def phase1_fleet():
                 kv_dim = shape["kv_heads"] * shape["head_dim"]
                 row_bytes = {"float": kv_dim * dtype.itemsize, "int8": kv_dim,
                              "int4": kv_dim // 2}[ring]
-                copies = _copies(b, shape["p"], row_bytes) if timed else 1
+                copies = _l2_copies(2 * b * shape["p"] * row_bytes) if timed else 1
                 c = _fleet_case(shape, ring, b, nv, dtype, seed, copies)
                 rows.append(_ring_row(c, dtype, f"{kernel} {ring} B={b} nv={nv} {dtype}",
                                       kernel, timed))
@@ -453,7 +466,7 @@ def _k2_row(name, k, n, m, dtype, seed, timed):
     from voxtral_tpu_torch.ops import q8_matmul as qm
     from voxtral_tpu_torch.quant import quantize_torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    copies = max(1, min(8, -(-160 * 2**20 // (k * n)))) if timed else 1
+    copies = _l2_copies(k * n) if timed else 1
     ws = [quantize_torch(torch.randn(k, n, generator=g, device="cuda") * 0.02)
           for _ in range(copies)]
     x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
@@ -599,26 +612,296 @@ def phase1_q8():
     return rows
 
 
+# The tools' shapes: T2 and T3 at the five merged bf16 tensors of
+# tools/profile_weight_stream.py (T3 at its B = 24 streams), T1 at the
+# decoder's seven Q8 matrices (K2_SHAPES), T11 at the rings of
+# tools/profile_dma_ceiling.py.
+MERGED = {"wq": (3072, 4096), "wkv": (3072, 2048), "wo": (4096, 3072),
+          "w13": (3072, 18432), "w2": (9216, 3072)}
+T3_ROWS, T11_SHAPE = 24, (16, 2088, 1024)
+# Integer and f32 adds of the read ceilings, at the CUDA cores' f32 rate
+ADD_DTYPE = "torch.float32"
+
+
+def _launched(mod, name, fn):
+    """fn() must launch `name` exactly once; returns its result."""
+    before = mod.LAUNCHES[name]
+    out = fn()
+    check(mod.LAUNCHES[name] == before + 1, f"{name}: the call did not launch the kernel")
+    return out
+
+
+def _t1_row(name, k, n, seed, timed):
+    """T1 (wread) against wread_plain on seeded int8 codes [k, n]: bit for
+    bit, and the same bits on a second launch. If `timed`: the kernel's,
+    the plain version's and torch.sum(q, 0, dtype=f32)'s times over copies
+    beyond the L2; bound: the codes and the output once, K N adds."""
+    import torch
+    from voxtral_tpu_torch.ops import read_ceiling as rc
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    copies = _l2_copies(k * n) if timed else 1
+    qs = [torch.randint(-127, 128, (k, n), generator=g, device="cuda", dtype=torch.int8)
+          for _ in range(copies)]
+    out = _launched(rc, "wread", lambda: rc.wread_kernel(qs[0]))
+    out2 = _launched(rc, "wread", lambda: rc.wread_kernel(qs[0]))
+    ref = rc.wread_plain(qs[0])
+    torch.cuda.synchronize()
+    what = f"T1 wread {name} (K {k}, N {n})"
+    check(tuple(out.shape) == (1, n) and torch.equal(out, ref), f"{what}: != plain")
+    check(torch.equal(out, out2), f"{what}: two launches differ")
+    row = dict(kernel="wread", matrix=name, k=k, n=n, max_abs_err=0.0, tol=0.0)
+    if timed:
+        bytes_ms, ops_ms, bound_ms, bound_by = _bound(k * n + 4 * n, k * n, ADD_DTYPE)
+        row.update(
+            ms=cuda_ms(lambda i: rc.wread_kernel(qs[i % copies]), 50),
+            plain_ms=cuda_ms(lambda i: rc.wread_plain(qs[i % copies]), 5),
+            library_ms=cuda_ms(lambda i: torch.sum(qs[i % copies], 0, dtype=torch.float32),
+                               50),
+            library="torch.sum(q, 0, dtype=f32)", bytes_ms=bytes_ms, ops_ms=ops_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[1] {what}: {json.dumps(row)}")
+    return row
+
+
+def _t2_tiles_sum(w, blk_k, blk_n):
+    """T2's function as one PyTorch call: the blocks' [8, 128] tiles as a
+    strided view [K blocks, 8, N blocks, 128] of w, summed in f32 over the
+    blocks. Needs every block's tile whole (every block >= 8 x 128)."""
+    import torch
+    k, n = w.shape
+    bk, bn = min(blk_k, k), min(blk_n, n)
+    nk, nn = -(-k // bk), -(-n // bn)
+    check(min(bk, k - (nk - 1) * bk) >= 8 and min(bn, n - (nn - 1) * bn) >= 128,
+          f"T2's strided view needs whole tiles: [{k}, {n}], blocks {bk} x {bn}")
+    return torch.as_strided(w, (nk, 8, nn, 128), (bk * n, n, bn, 1)).sum(
+        (0, 2), dtype=torch.float32)
+
+
+def _t2_row(name, k, n, seed, timed, blk_k=1536, blk_n=1024):
+    """T2 (pure_stream) against pure_stream_plain on a seeded bf16 [k, n]
+    weight: within 1e-6 of max|out| (the kernel adds the tiles in the JAX
+    grid's order, as the plain version does: expected exact), and the
+    kernel's per-block word sums add up to word_checksum_plain(w), so every
+    byte of w was loaded. If `timed`: times over copies beyond the L2, the
+    bound (w and the output once; 1024 adds per block) and the library
+    yardstick, one torch.sum over a strided view of the blocks' tiles
+    (`_t2_tiles_sum`; it reads only the tiles, so its time is no read
+    rate), held to the same tolerance."""
+    import torch
+    from voxtral_tpu_torch.ops import read_ceiling as rc
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    copies = _l2_copies(2 * k * n) if timed else 1
+    ws = [(torch.randn((k, n), generator=g, device="cuda") * 0.05).to(torch.bfloat16)
+          for _ in range(copies)]
+    out, sums = _launched(rc, "pure_stream", lambda: rc.pure_stream_kernel(
+        ws[0], blk_k, blk_n))
+    ref = rc.pure_stream_plain(ws[0], blk_k, blk_n)
+    want_sum = rc.word_checksum_plain(ws[0])
+    torch.cuda.synchronize()
+    got_sum = int(sums.to(torch.int64).sum().item()) & 0xFFFFFFFF
+    what = f"T2 pure_stream {name} (K {k}, N {n}, blocks {blk_k} x {blk_n})"
+    err = (out - ref).abs().max().item()
+    tol = 1e-6 * ref.abs().max().item()
+    check(err <= tol, f"{what}: err {err} > tol {tol}")
+    check(got_sum == want_sum, f"{what}: word sum {got_sum:#x} != {want_sum:#x}: "
+                               "not every byte was read")
+    n_blocks = -(-k // min(blk_k, k)) * -(-n // min(blk_n, n))
+    row = dict(kernel="pure_stream", matrix=name, k=k, n=n, max_abs_err=err, tol=tol,
+               word_sum_ok=True)
+    if timed:
+        bytes_ms, ops_ms, bound_ms, bound_by = _bound(2 * k * n + 4 * 1024,
+                                                      1024 * n_blocks, ADD_DTYPE)
+        lib_err = (_t2_tiles_sum(ws[0], blk_k, blk_n) - ref).abs().max().item()
+        check(lib_err <= tol, f"{what}: the library yardstick is off by {lib_err} > {tol}")
+        row.update(
+            ms=cuda_ms(lambda i: rc.pure_stream_kernel(ws[i % copies], blk_k, blk_n), 50),
+            plain_ms=cuda_ms(lambda i: rc.pure_stream_plain(ws[i % copies], blk_k, blk_n),
+                             5),
+            library_ms=cuda_ms(lambda i: _t2_tiles_sum(ws[i % copies], blk_k, blk_n), 50),
+            library="torch.sum over a strided view of the tiles (reads only the tiles)",
+            library_err=lib_err, bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms,
+            bound_by=bound_by)
+    log(f"[1] {what}: {json.dumps(row)}")
+    return row
+
+
+def _t3_row(name, k, n, m, seed, timed):
+    """T3 (bf16_matmul) against bf16_matmul_plain (f32 product of the bf16
+    values): within 1e-4 of max|plain| (exact products, another summation
+    order), the same bits on a second launch. If `timed`: times over weight
+    copies beyond the L2, torch.mm(x, w, out_dtype=f32) as the yardstick,
+    and the bound (x, w and y once; 2 m k n operations at the bf16 rate)."""
+    import torch
+    from voxtral_tpu_torch.ops import bf16_matmul as bm
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    copies = _l2_copies(2 * k * n) if timed else 1
+    ws = [(torch.randn((k, n), generator=g, device="cuda") * 0.05).to(torch.bfloat16)
+          for _ in range(copies)]
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    y = _launched(bm, "bf16_matmul", lambda: bm.bf16_matmul_kernel(x, ws[0]))
+    y2 = _launched(bm, "bf16_matmul", lambda: bm.bf16_matmul_kernel(x, ws[0]))
+    ref = bm.bf16_matmul_plain(x, ws[0])
+    torch.cuda.synchronize()
+    what = f"T3 bf16_matmul {name} (K {k}, N {n}) M={m}"
+    err = (y - ref).abs().max().item()
+    tol = 1e-4 * ref.abs().max().item()
+    check(torch.isfinite(y).all().item() and tuple(y.shape) == (m, n),
+          f"{what}: non-finite or misshapen output")
+    check(err <= tol, f"{what}: err {err} > tol {tol}")
+    check(torch.equal(y, y2), f"{what}: two launches differ")
+    row = dict(kernel="bf16_matmul", matrix=name, k=k, n=n, b=m, max_abs_err=err, tol=tol)
+    if timed:
+        bytes_ms, ops_ms, bound_ms, bound_by = _bound(
+            2 * k * n + 2 * m * k + 4 * m * n, 2 * m * k * n, torch.bfloat16)
+        row.update(
+            ms=cuda_ms(lambda i: bm.bf16_matmul_kernel(x, ws[i % copies]), 50),
+            plain_ms=cuda_ms(lambda i: bm.bf16_matmul_plain(x, ws[i % copies]), 5),
+            library_ms=cuda_ms(lambda i: torch.mm(x, ws[i % copies],
+                                                  out_dtype=torch.float32), 50),
+            library="torch.mm(out_dtype=f32)", bytes_ms=bytes_ms, ops_ms=ops_ms,
+            bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[1] {what}: {json.dumps(row)}")
+    return row
+
+
+def _t11_row(shape, salt, seed, timed):
+    """T11 (rd) against rd_plain on seeded int8 rings: bit for bit, twice.
+    If `timed`: times over ring pairs beyond the L2, two torch.sum calls +
+    the adds as the yardstick, and the bound (both rings, the salt and the
+    output once; 2 B P C + B C adds)."""
+    import torch
+    from voxtral_tpu_torch.ops import read_ceiling as rc
+    b, p, c = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    copies = _l2_copies(2 * b * p * c) if timed else 1
+    pairs = [tuple(torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                 dtype=torch.int8) for _ in range(2)) for _ in range(copies)]
+    s = torch.tensor([salt], dtype=torch.float32, device="cuda")
+    out = _launched(rc, "rd", lambda: rc.rd_kernel(*pairs[0], s))
+    out2 = _launched(rc, "rd", lambda: rc.rd_kernel(*pairs[0], s))
+    ref = rc.rd_plain(*pairs[0], s)
+    torch.cuda.synchronize()
+    what = f"T11 rd {list(shape)} salt {salt}"
+    check(tuple(out.shape) == (b, 1, c) and torch.equal(out, ref), f"{what}: != plain")
+    check(torch.equal(out, out2), f"{what}: two launches differ")
+    row = dict(kernel="rd", shape=list(shape), max_abs_err=0.0, tol=0.0)
+    if timed:
+        def lib(i):
+            k, v = pairs[i % copies]
+            return (torch.sum(k, 1, keepdim=True, dtype=torch.float32)
+                    + torch.sum(v, 1, keepdim=True, dtype=torch.float32)) + s
+        bytes_ms, ops_ms, bound_ms, bound_by = _bound(2 * b * p * c + 4 + 4 * b * c,
+                                                      2 * b * p * c + b * c, ADD_DTYPE)
+        row.update(
+            ms=cuda_ms(lambda i: rc.rd_kernel(*pairs[i % copies], s), 50),
+            plain_ms=cuda_ms(lambda i: rc.rd_plain(*pairs[i % copies], s), 5),
+            library_ms=cuda_ms(lib, 50), library="torch.sum x 2 + add",
+            bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
+    log(f"[1] {what}: {json.dumps(row)}")
+    return row
+
+
+def phase1_tools():
+    """T1, T2, T3 and T11 at the tools' shapes (timed), plus ragged shapes
+    (checked): column counts that are not a multiple of the kernels' tiles,
+    K not a multiple of T2's block or T3's chunk, B from 1 to 64. T2's time
+    must grow with the bytes it reads (w13 against wq), not stay with its
+    [8, 128] output. Returns the rows."""
+    rows, seed = [], 700
+    for name, (k, n) in K2_SHAPES.items():
+        seed += 1
+        rows.append(_t1_row(name, k, n, seed, True))
+    rows.append(_t1_row("table", VOCAB, DIM, 722, True))     # K3's int8 table
+    rows.append(_t1_row("ragged", 200, 784, 720, False))
+    for name, (k, n) in MERGED.items():
+        seed += 1
+        rows.append(_t2_row(name, k, n, seed, True))
+    rows.append(_t2_row("table", VOCAB, DIM, 723, True))     # K3's bf16 table
+    rows.append(_t2_row("ragged", 1000, 1032, 721, False, blk_k=256, blk_n=512))
+    t2 = {r["matrix"]: r for r in rows if r["kernel"] == "pure_stream"}
+    ratio = t2["w13"]["ms"] / t2["wq"]["ms"]
+    byte_ratio = MERGED["w13"][1] / MERGED["wq"][1]
+    log(f"[1] T2 time w13 / wq {ratio:.3f} for {byte_ratio:.2f}x the bytes")
+    check(ratio >= 0.5 * byte_ratio, f"T2's time does not follow its bytes: {ratio}")
+    for name, (k, n) in MERGED.items():
+        seed += 1
+        rows.append(_t3_row(name, k, n, T3_ROWS, seed, True))
+    for m in (1, 16, 64):
+        rows.append(_t3_row("wq", *MERGED["wq"], m, 730 + m, False))
+    rows.append(_t3_row("ragged", 1536 + 72, 1000, 5, 731, False))
+    rows.append(_t11_row(T11_SHAPE, 0.375, 740, True))
+    rows.append(_t11_row(T11_SHAPE, 1.0e-3, 741, False))
+    rows.append(_t11_row((3, 77, 528), -2.5e-4, 742, False))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the tools path
+# ---------------------------------------------------------------------------
+
+def phase6():
+    """The three ported profile tools at their defaults on the card,
+    through their functions. Every launch count is checked against the
+    tools' structure: each timed loop calls its wrappers once to warm up
+    and `iters` times inside the captured CUDA graph (replays launch
+    without the wrappers). Returns (launches, results)."""
+    from voxtral_tpu_torch.tools.profile_dma_ceiling import profile_dma_ceiling
+    from voxtral_tpu_torch.tools.profile_q8_matmul_roofline import (
+        MATRICES, profile_q8_matmul_roofline,
+    )
+    from voxtral_tpu_torch.tools.profile_weight_stream import TENSORS, profile_weight_stream
+    t0 = time.perf_counter()
+    _reset_counts()                                 # the tools path starts here
+    roof = profile_q8_matmul_roofline()
+    stream = profile_weight_stream()
+    dma = profile_dma_ceiling()
+    launches = _counts()                            # ... and ends
+    want = dict.fromkeys(launches, 0)
+    per_q8 = len(MATRICES) * roof["layers"] * (1 + roof["iters"])
+    want.update(w8a16_gemv=per_q8, wread=per_q8, fused_logits_argmax=1 + roof["iters"],
+                pure_stream=len(TENSORS) * stream["layers"] * (1 + stream["iters"]),
+                bf16_matmul=len(TENSORS) * stream["layers"] * (1 + stream["iters"]),
+                rd=dma["layers"] * (1 + dma["iters"]))
+    for name, res in (("profile_q8_matmul_roofline", roof),
+                      ("profile_weight_stream", stream), ("profile_dma_ceiling", dma)):
+        log(f"[6] {name}: {json.dumps(res)}")
+    check(launches == want, f"tools path launches {launches} != {want}")
+    ceilings = dict(t1_int8_weights=roof["read_gbps"], t2_bf16_weights=stream["stream_gbps"],
+                    t3_bf16_stack=stream["t3_gbps"], torch_matmul_stack=stream["matmul_gbps"],
+                    t11_int8_rings=dma["gbps"], k2_q8_stack=roof["stack_gbps"],
+                    k3_q8_logits=roof["logits_gbps"])
+    for key, v in ceilings.items():
+        check(np.isfinite(v) and v > 0, f"{key}: {v} GB/s")
+    log(f"[6] measured GB/s: {json.dumps(ceilings)}; launches {json.dumps(launches)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches, dict(roofline=roof, weight_stream=stream, dma_ceiling=dma)
+
+
 # ---------------------------------------------------------------------------
 # Phases 2 and 3: the pipeline
 # ---------------------------------------------------------------------------
 
-def _reset_counts():
-    """Every launch count of the port to 0 (and the Q8 large-M route's)."""
+def _count_modules():
+    from voxtral_tpu_torch.ops import bf16_matmul as bm
     from voxtral_tpu_torch.ops import logits_argmax as la
     from voxtral_tpu_torch.ops import q8_matmul as qm
+    from voxtral_tpu_torch.ops import read_ceiling as rc
     from voxtral_tpu_torch.ops import ring_attention as ra
-    for mod in (ra, qm, la):
+    return ra, qm, la, rc, bm
+
+
+def _reset_counts():
+    """Every launch count of the port to 0 (and the Q8 large-M route's)."""
+    for mod in _count_modules():
         mod.reset_launches()
 
 
 def _counts():
     """{kernel: launches} of every kernel, and "q8_mm": the Q8 large-M
     route's calls (not a kernel)."""
-    from voxtral_tpu_torch.ops import logits_argmax as la
-    from voxtral_tpu_torch.ops import q8_matmul as qm
-    from voxtral_tpu_torch.ops import ring_attention as ra
-    return {**ra.LAUNCHES, **qm.LAUNCHES, **la.LAUNCHES, **qm.LARGE_M_CALLS}
+    ra, qm, la, rc, bm = _count_modules()
+    return {**ra.LAUNCHES, **qm.LAUNCHES, **la.LAUNCHES, **rc.LAUNCHES, **bm.LAUNCHES,
+            **qm.LARGE_M_CALLS}
 
 
 def phase2():
@@ -1100,6 +1383,46 @@ def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, m
     return share
 
 
+def ceiling_shares(rows):
+    """Each kernel that reads what a read ceiling reads, as a share of that
+    ceiling measured in this run: the ceiling's time for the same data over
+    the kernel's time. K2 (bf16 x, M = 16) against T1 on the same matrix
+    shape; K3 (argmax, B = 16) against T1 (int8 table) or T2 (bf16 table)
+    on the [131072, 3072] table; K1-int8 (B = 16, nv = 2080) against T11's
+    rate applied to the bytes of its bound. Beside each, the share of the
+    data-sheet bound."""
+    def one(kernel, **pick):
+        return next(r for r in rows if r["kernel"] == kernel and "ms" in r
+                    and all(r.get(k) == v for k, v in pick.items()))
+
+    out = {}
+    for name in K2_SHAPES:
+        k2 = one("w8a16_gemv", matrix=name, b=16)
+        out[f"K2 {name} M=16"] = dict(ceiling="T1", share=one("wread", matrix=name)["ms"]
+                                      / k2["ms"], bound_share=k2["bound_ms"] / k2["ms"])
+    for table, ceiling in (("int8", ("wread", "T1")), ("bf16", ("pure_stream", "T2"))):
+        k3 = one("fused_logits_argmax", table=table, b=16, mode="argmax")
+        out[f"K3 {table} B=16"] = dict(
+            ceiling=ceiling[1], share=one(ceiling[0], matrix="table")["ms"] / k3["ms"],
+            bound_share=k3["bound_ms"] / k3["ms"])
+    t11 = one("rd")
+    rate = 2 * np.prod(t11["shape"]) / t11["ms"]          # ring bytes per ms
+    k1 = one("ring_gqa_attention_int8", b=16, nv=2080)
+    k1_bytes = k1["bytes_ms"] * HBM_BYTES_PER_S / 1e3
+    out["K1-int8 B=16 nv=2080"] = dict(ceiling="T11", share=k1_bytes / rate / k1["ms"],
+                                       bound_share=k1["bound_ms"] / k1["ms"])
+    log(f"[1] shares of the measured ceilings: {json.dumps(out)}")
+    return out
+
+
+# What each path must launch: the serving path (phases 3 and 5; q8_mm is
+# the Q8 large-M route, not a kernel) and the tools path (phase 6).
+MAIN_PATH = ("ring_gqa_attention", "ring_gqa_attention_int8", "ring_gqa_attention_enc",
+             "w8a16_gemv", "fused_logits_argmax", "q8_mm")
+TOOLS_PATH = ("wread", "pure_stream", "bf16_matmul", "rd", "w8a16_gemv",
+              "fused_logits_argmax")
+
+
 def _kernel_entry(rows, launches, name, source, replaces, pick):
     """The kernel's entry of the `kernels` line: its launches on the main
     path, its largest error over every phase-1 case, and the numbers of the
@@ -1123,7 +1446,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase0()
-    rows = phase1() + phase1_fleet() + phase1_q8()
+    rows = phase1() + phase1_fleet() + phase1_q8() + phase1_tools()
+    ceiling_shares(rows)
     log(f"[1] done at {time.perf_counter() - t_start:.1f} s")
     phase2()
     log(f"[2] done at {time.perf_counter() - t_start:.1f} s")
@@ -1135,8 +1459,13 @@ def main() -> int:
     launches = {k: launches3[k] + launches5[k] for k in launches3}
     log(f"[5] main-path launches (phases 3 and 5; q8_mm counts the Q8 large-M "
         f"route's calls): {json.dumps(launches)}")
-    for k, v in launches.items():
-        check(v > 0, f"the main path launched no {k} kernel")
+    for k in MAIN_PATH:
+        check(launches[k] > 0, f"the main path launched no {k} kernel")
+    log(f"[5] done at {time.perf_counter() - t_start:.1f} s")
+    tool_launches, _ = phase6()
+    log(f"[6] done at {time.perf_counter() - t_start:.1f} s")
+    for k in TOOLS_PATH:
+        check(tool_launches[k] > 0, f"the tools path launched no {k} kernel")
     attention = "voxtral_tpu/ops/pallas_attention.py:204"
     kernels = [   # K1 at the offline pipeline's first decode step, in bf16
         _kernel_entry(rows, launches, "ring_gqa_attention", "ring_attention.cu",
@@ -1150,6 +1479,15 @@ def main() -> int:
                       "voxtral_tpu/ops/linear.py:25-29", dict(b=16, matrix="w1/w3")),
         _kernel_entry(rows, launches, "fused_logits_argmax", "logits_argmax.cu",
                       "tools/profile_logits.py:57", dict(b=16, table="int8", mode="argmax")),
+        # the tools path's kernels, with their launches there (phase 6)
+        _kernel_entry(rows, tool_launches, "wread", "read_ceiling.cu",
+                      "tools/profile_q8_matmul_roofline.py:85", dict(matrix="w1/w3")),
+        _kernel_entry(rows, tool_launches, "pure_stream", "read_ceiling.cu",
+                      "tools/profile_weight_stream.py:73", dict(matrix="w13")),
+        _kernel_entry(rows, tool_launches, "bf16_matmul", "bf16_matmul.cu",
+                      "tools/profile_weight_stream.py:98", dict(matrix="w13")),
+        _kernel_entry(rows, tool_launches, "rd", "read_ceiling.cu",
+                      "tools/profile_dma_ceiling.py:28", {}),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi_line())

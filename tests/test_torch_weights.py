@@ -125,7 +125,7 @@ def test_cuda_device_without_cuda_raises():
 
 def test_port_imports_without_jax():
     """Every module of the port imports in a process where jax cannot be
-    imported."""
+    imported, and none imports the JAX package or the repo's `tools`."""
     mods = sorted(
         "voxtral_tpu_torch." + os.path.relpath(os.path.join(d, f), PORT)[:-3]
         .replace(os.sep, ".").replace(".__init__", "")
@@ -133,9 +133,9 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import importlib, voxtral_tpu_torch\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
-            "assert not any(k == 'jax' or k.startswith(('jax.', 'voxtral_tpu.'))\n"
-            "               or k == 'voxtral_tpu' for k in sys.modules\n"
-            "               if sys.modules[k] is not None)\n"
+            "assert not any(k in ('jax', 'voxtral_tpu', 'tools')\n"
+            "               or k.startswith(('jax.', 'voxtral_tpu.', 'tools.'))\n"
+            "               for k in sys.modules if sys.modules[k] is not None)\n"
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -143,7 +143,7 @@ def test_port_imports_without_jax():
 
 
 def test_port_sources_name_no_jax():
-    pattern = re.compile(r"voxtral_tpu\.|^\s*(import|from)\s+jax\b", re.M)
+    pattern = re.compile(r"voxtral_tpu\.|^\s*(import|from)\s+(jax|tools)\b", re.M)
     offenders = []
     for d, _, files in os.walk(PORT):
         for f in files:

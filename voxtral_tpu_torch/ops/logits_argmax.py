@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from voxtral_tpu_torch.ops._scratch import zeroed_scratch
 from voxtral_tpu_torch.quant import Quantized
 
 _BLOCK_ROWS, _MAX_BT = 512, 16             # = kBlockRows, kMaxBT in the source
@@ -73,12 +74,6 @@ def _lib():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _counters(index: int) -> torch.Tensor:
-    """Zeroed merge counters of one card; every launch leaves them zero."""
-    return torch.zeros(_N_COUNTERS, dtype=torch.int32, device=f"cuda:{index}")
-
-
 def fused_logits_argmax(h: torch.Tensor, table: torch.Tensor, scales=None, *,
                         logits: bool = False) -> torch.Tensor:
     """K3 on CUDA tensors: h [B, D] f32/bf16, table [V, D] f32/bf16, or
@@ -118,8 +113,9 @@ def fused_logits_argmax(h: torch.Tensor, table: torch.Tensor, scales=None, *,
         n_part = -(-v // _BLOCK_ROWS) * -(-b // _MAX_BT) * _MAX_BT
         part_val = torch.empty((n_part,), dtype=torch.float32, device=dev)
         part_idx = torch.empty((n_part,), dtype=torch.int32, device=dev)
-        counters = _counters(dev.index if dev.index is not None
-                             else torch.cuda.current_device())
+        counters = zeroed_scratch(dev.index if dev.index is not None
+                                  else torch.cuda.current_device(),
+                                  "fused_logits_argmax", _N_COUNTERS)
     err = _lib()(_TABLE_CODES[table.dtype], _H_CODES[h.dtype], int(logits), h.data_ptr(),
                  table.data_ptr(), ptr(scales), out.data_ptr() if logits else None,
                  None if logits else out.data_ptr(), ptr(part_val), ptr(part_idx),

@@ -28,6 +28,8 @@ import functools
 
 import torch
 
+from voxtral_tpu_torch.ops._scratch import sm_count, zeroed_scratch
+
 # Decode's largest M (streams per step) that goes to the GEMV kernel
 Q8_GEMV_MAX_ROWS = 64
 # = kCols, kRowStep, the largest MT and kSlice in w8a16.cu
@@ -75,14 +77,6 @@ def _lib():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _device_state(index: int):
-    """(SM count, zeroed split-K counters) of one card; every launch leaves
-    the counters zero."""
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return sms, torch.zeros(_N_COUNTERS, dtype=torch.int32, device=f"cuda:{index}")
-
-
 def w8a16_gemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """K2 on CUDA tensors: x [M, K] f32/bf16 contiguous, 16-byte aligned,
     M <= 64, K % 8 == 0; q int8 [K, N] contiguous (N % 4 == 0, 4-byte
@@ -109,11 +103,11 @@ def w8a16_gemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tenso
             raise ValueError(f"tensor on {t.device}, expected {dev}")
         if not t.is_contiguous():
             raise ValueError("w8a16_gemv needs contiguous tensors")
-    sms, counters = _device_state(dev.index if dev.index is not None
-                                  else torch.cuda.current_device())
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     if -(-n // _COLS) * -(-m // _M_CHUNK) > _N_COUNTERS:
         raise ValueError(f"N = {n} has more column tiles than the kernel's counters")
-    k_slice, splits = split_k(m, k, n, sms)
+    counters = zeroed_scratch(index, "w8a16_gemv", _N_COUNTERS)
+    k_slice, splits = split_k(m, k, n, sm_count(index))
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
     part = torch.empty((splits * m * n if splits > 1 else 1,), dtype=torch.float32,
                        device=dev)

@@ -1,4 +1,5 @@
-"""Weight I/O for the port: safetensors reader, param-tree mapping, random init.
+"""Weight I/O for the port: safetensors reader and writer, param-tree
+mapping, random init.
 
 Counterpart of `voxtral_tpu/weights.py`. The param tree has the JAX
 package's layout, as plain dicts of torch tensors:
@@ -61,6 +62,7 @@ class SafetensorsFile:
                 raise ValueError(f"{path}: header length {hlen} exceeds file")
             header = json.loads(hraw)
         self.header = {k: v for k, v in header.items() if k != "__metadata__"}
+        self.metadata = header.get("__metadata__", {})
         self._data_start = 8 + hlen
         # copy-on-write map: tensors are writable views (torch.from_numpy
         # needs that) and the file is never modified
@@ -101,6 +103,13 @@ class SafetensorsFile:
                     f"{self.path}: size mismatch for {name}: {e - s} bytes "
                     f"vs {want} expected for {meta['dtype']} {shape}")
 
+    def names(self) -> list[str]:
+        return list(self.header.keys())
+
+    def info(self, name: str) -> dict:
+        """The tensor's header entry: dtype, shape, data_offsets."""
+        return self.header[name]
+
     def is_q8(self, name: str) -> bool:
         return self.header[name]["dtype"] == "Q8"
 
@@ -126,6 +135,62 @@ class SafetensorsFile:
         scales = torch.from_numpy(raw[:4 * rows].view(np.float32))
         q = torch.from_numpy(raw[4 * rows:].view(np.int8).reshape(rows, cols))
         return scales, q
+
+    def tensor_f32(self, name: str) -> torch.Tensor:
+        """A new f32 host tensor of the values (a Q8 tensor dequantized:
+        codes times their row's scale)."""
+        if self.is_q8(name):
+            scales, q = self.q8_tensor(name)
+            return q.float() * scales[:, None]
+        return self.tensor(name).float()
+
+
+# numpy storage dtype -> safetensors name, for the writer (bf16 is written
+# from its uint16 bits, see _storage)
+_NAMES = {np.dtype(np_dt): name for name, (np_dt, _) in _DTYPES.items() if name != "BF16"}
+
+
+def _storage(arr) -> tuple[str, np.ndarray]:
+    """(safetensors dtype name, contiguous numpy array of the stored bytes)
+    of a numpy array; bf16 (an ml_dtypes array) is stored as its bits."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return "BF16", arr.view(np.uint16)
+    if arr.dtype not in _NAMES:
+        raise ValueError(f"dtype {arr.dtype} has no safetensors name here")
+    return _NAMES[arr.dtype], arr
+
+
+def save_safetensors(path: str, tensors: dict, metadata: dict | None = None) -> None:
+    """Write `tensors` (name -> numpy array, or the Q8 tuple
+    ("Q8", scales, q, shape)) in the layout `SafetensorsFile` reads: a Q8
+    tensor is [rows f32 scales][rows * cols int8]. The header is the JAX
+    package's writer's (voxtral_tpu/weights.py:149-176), key for key."""
+    header: dict = {}
+    if metadata:
+        header["__metadata__"] = metadata
+    offset = 0
+    blobs = []
+    for name, arr in tensors.items():
+        if isinstance(arr, tuple):
+            _, scales, q, shape = arr
+            blob = (np.asarray(scales, dtype=np.float32).tobytes()
+                    + np.asarray(q, dtype=np.int8).tobytes())
+            header[name] = {"dtype": "Q8", "shape": list(shape),
+                            "data_offsets": [offset, offset + len(blob)]}
+        else:
+            dtype, data = _storage(arr)
+            blob = data.tobytes()
+            header[name] = {"dtype": dtype, "shape": list(data.shape),
+                            "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    hjson = json.dumps(header).encode()
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hjson)))
+        f.write(hjson)
+        for blob in blobs:
+            f.write(blob)
 
 
 # ---------------------------------------------------------------------------

@@ -24,7 +24,12 @@ Phases (any failure raises and the script exits non-zero):
      (pure_stream) at the five merged bf16 tensors, whose per-block word
      sums must add up to the tensor's (every byte read) and whose time must
      grow with the bytes; T3 (bf16_matmul) at the same tensors, B = 24,
-     within 1e-4 of max|y|; ragged shapes checked.
+     within 1e-4 of max|y|; ragged shapes checked. T4 (attn8, int8 rings)
+     and T5 (attn4, nibble-packed rings) at B = 32, P = 2088; T6 (attn3d)
+     and T7 (attn4d, block-major rings) at B = 16, P = 2088, blk 256, 512
+     and 1024, with the tool's positions and with masked slots and a fully
+     masked stream (exact zeros), T6 == T7 bit for bit; P = 77 and B = 1
+     checked; all within two bf16 ulps of max|out|.
   2. Offline, reduced depth (2 encoder + 2 decoder layers), full 4B width,
      f32: transcribe_tokens_batch on cuda (kernels) and on cpu (plain
      versions) must give equal tokens and best logits, with float weights
@@ -47,10 +52,12 @@ Phases (any failure raises and the script exits non-zero):
      read whole), run twice (tokens identical), with every kernel's
      launches (and the Q8 large-M route's calls) checked per step and one
      profiled step.
-  6. The tools path: the three ported profile tools at their defaults
+  6. The tools path: the five ported profile tools at their defaults
      (voxtral_tpu_torch.tools: the Q8 roofline through K2, T1 and K3; the
      bf16 weight stream through torch.matmul, T2 and T3; the ring read
-     ceiling through T11), every launch count checked, their GB/s logged.
+     ceiling through T11; the int4 unpack through T4 and T5, with its
+     numeric check; the ring layout through T6 and T7), every launch count
+     checked, their GB/s and the ratios T5 / T4 and T7 / T6 logged.
 The next-to-last lines are the card's name/power limit and one JSON object
 with each kernel's numbers; the last line is the run's result as JSON.
 Weights are random (seeded): tokens are meaningless but deterministic.
@@ -835,17 +842,200 @@ def phase1_tools():
     return rows
 
 
+# T4-T7: the attention kernels of tools/profile_int4_unpack.py (int8 and
+# nibble-packed rings, B = 32) and tools/profile_attn_layout.py (masked,
+# scaled, [B, P, 1024] and block-major [B, nb, P, blk] rings, B = 16).
+LAYOUT_P, LAYOUT_KV, LAYOUT_BLKS = 2088, 1024, (256, 512, 1024)
+
+
+def _layout_tol(ref):
+    """Two bf16 ulps of max|ref| (T5_CHECK_RTOL): e rounds to bf16 after
+    f32 sums taken in another order, and the output rounds to bf16."""
+    from voxtral_tpu_torch.tools.profile_int4_unpack import T5_CHECK_RTOL
+    return T5_CHECK_RTOL * ref.float().abs().max().item()
+
+
+def _t45_row(kernel, b, p, kv, seed, timed):
+    """T4 (attn8, int8 rings) or T5 (attn4, packed rings) against its plain
+    version on seeded rings and q = 0.05 N(0, 1) in bf16: within
+    `_layout_tol`, the same bits on a second launch. If `timed`: times over
+    ring copies beyond the L2, the bound (rings, q and the output once; 2
+    products of 4 query rows per K/V lane at the bf16 rate) and the
+    yardstick, SDPA with scale 1.0 and no mask over bf16 copies of the
+    codes (T5: unpacked) -- normalised: the same reads and products, not the
+    same output."""
+    import torch
+    import torch.nn.functional as F
+    from voxtral_tpu_torch.ops import layout_attention as la
+    from voxtral_tpu_torch.quant import unpack_int4
+    packed = kernel == "attn4"
+    kern, plain = ((la.attn4_kernel, la.attn4_plain) if packed
+                   else (la.attn8_kernel, la.attn8_plain))
+    lanes, lo, hkv = (kv // 2, -128, kv // 128) if packed else (kv, -127, kv // 128)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    copies = _l2_copies(2 * b * p * lanes) if timed else 1
+    rings = [tuple(torch.randint(lo, 127, (b, p, lanes), generator=g, device="cuda",
+                                 dtype=torch.int8) for _ in range(2)) for _ in range(copies)]
+    q = (torch.randn((b, 1, 4 * kv), generator=g, device="cuda") * 0.05).to(torch.bfloat16)
+    out = _launched(la, kernel, lambda: kern(q, *rings[0]))
+    out2 = _launched(la, kernel, lambda: kern(q, *rings[0]))
+    ref = plain(q, *rings[0])
+    torch.cuda.synchronize()
+    what = f"{'T5' if packed else 'T4'} {kernel} B={b} P={p} kv_dim={kv}"
+    err, tol = (out.float() - ref.float()).abs().max().item(), _layout_tol(ref)
+    check(torch.isfinite(out).all().item() and out.shape == q.shape,
+          f"{what}: non-finite or misshapen output")
+    check(err <= tol, f"{what}: err {err} > tol {tol}")
+    check(torch.equal(out, out2), f"{what}: two launches differ")
+    row = dict(kernel=kernel, b=b, p=p, kv_dim=kv, max_abs_err=err, tol=tol)
+    if timed:
+        def codes(r):                                  # -> bf16 [b, hkv, p, 128]
+            if packed:
+                r = torch.cat(unpack_int4(r.view(b, p, hkv, 64)), -1)
+            return r.view(b, p, hkv, 128).transpose(1, 2).to(torch.bfloat16).contiguous()
+
+        kvs = [(codes(k), codes(v)) for k, v in rings]
+        qs = q.view(b, hkv * 4, 1, 128)
+        bytes_ms, ops_ms, bound_ms, bound_by = _bound(
+            2 * b * p * lanes + 2 * 2 * b * 4 * kv, 16 * kv * b * p, torch.bfloat16)
+        row.update(
+            ms=cuda_ms(lambda i: kern(q, *rings[i % copies]), 50),
+            plain_ms=cuda_ms(lambda i: plain(q, *rings[i % copies]), 5),
+            library_ms=cuda_ms(lambda i: F.scaled_dot_product_attention(
+                qs, *kvs[i % copies], scale=1.0, enable_gqa=True), 20),
+            library="SDPA, scale 1, no mask, bf16 codes (normalised: the same reads and "
+                    "products, not the same output)",
+            bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del kvs
+    log(f"[1] {what}: {json.dumps(row)}")
+    return row
+
+
+def _t67_rows(b, p, blk, seed, timed, masked):
+    """T6 (attn3d) and T7 (attn4d) against their plain version on seeded
+    int8 rings (the same values in both layouts), scales in [0.005, 0.02],
+    q uniform in [-0.5, 0.5) in bf16: within `_layout_tol`, T6 == T7 bit for
+    bit, and a call whose query positions are all invalid returns exact
+    zeros. Positions: the tool's (sp = arange(P), qp = P + 10, every slot
+    valid), or `masked`: sp = 7 j, every 13th slot negative, qp = 7 (P - 1)
+    - 30, so the mask cuts slots by sp < 0, sp > qp and the 8192 window,
+    and the last stream (B > 1) has an invalid query position (every slot
+    masked, exact zeros). If `timed`: each kernel's time over ring copies
+    beyond the L2, the plain version's, the bound (q and the output, sp and
+    qp once, and K, V and their scales for the valid slots; 2 products of 4
+    query rows per K/V lane of a valid slot at the bf16 rate) and the
+    yardstick: one SDPA call with the boolean mask over the rings
+    dequantized to bf16 beforehand (untimed). Returns the two rows."""
+    import torch
+    import torch.nn.functional as F
+    from voxtral_tpu_torch.ops import layout_attention as la
+    kv = LAYOUT_KV
+    hkv, nb, sub = kv // 128, kv // blk, blk // 128
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    copies = _l2_copies(2 * b * p * kv) if timed else 1
+    rings3 = [tuple(torch.randint(-127, 127, (b, p, kv), generator=g, device="cuda",
+                                  dtype=torch.int8) for _ in range(2)) for _ in range(copies)]
+    rings4 = [tuple(la.to_block_major(r, blk) for r in pair) for pair in rings3]
+    q = (torch.rand((b, 1, 4 * kv), generator=g, device="cuda") - 0.5).to(torch.bfloat16)
+    ks, vs = (0.005 + 0.015 * torch.rand((b, nb, sub, p), generator=g, device="cuda")
+              for _ in range(2))
+    j = torch.arange(p, dtype=torch.int32, device="cuda")
+    if masked:
+        sp = torch.where(j % 13 == 5, -1 - j, 7 * j)
+        qp = torch.full((b, 1, 1), 7 * (p - 1) - 30, dtype=torch.int32, device="cuda")
+        if b > 1:
+            qp[-1] = SLOT_INVALID
+    else:
+        sp = j
+        qp = torch.full((b, 1, 1), p + 10, dtype=torch.int32, device="cuda")
+    sp = sp.repeat(b, 1).reshape(b, 1, p).contiguous()
+    dead_qp = torch.full_like(qp, SLOT_INVALID)
+    ref = la.attn3d_plain(q, *rings3[0], sp, qp, ks, vs, blk)
+    tol = _layout_tol(ref)
+    spq = sp.reshape(b, p).long()
+    live = ((spq >= 0) & (spq <= qp.reshape(b, 1)) & (spq >= qp.reshape(b, 1) - 8191))
+    n_live = int(live.sum())
+    outs, rows = [], []
+    for kernel, kern, rings in (("attn3d", la.attn3d_kernel, rings3),
+                                ("attn4d", la.attn4d_kernel, rings4)):
+        out = _launched(la, kernel, lambda: kern(q, *rings[0], sp, qp, ks, vs, blk))
+        dead = _launched(la, kernel, lambda: kern(q, *rings[0], sp, dead_qp, ks, vs, blk))
+        torch.cuda.synchronize()
+        what = (f"{'T6' if kernel == 'attn3d' else 'T7'} {kernel} B={b} P={p} blk={blk}"
+                + (" masked" if masked else ""))
+        err = (out.float() - ref.float()).abs().max().item()
+        check(torch.isfinite(out).all().item() and out.shape == q.shape,
+              f"{what}: non-finite or misshapen output")
+        check(err <= tol, f"{what}: err {err} > tol {tol}")
+        check(dead.abs().max().item() == 0.0, f"{what}: all-masked call is not zero")
+        if masked and b > 1:
+            check(out[-1].abs().max().item() == 0.0, f"{what}: masked stream is not zero")
+        outs.append(out)
+        row = dict(kernel=kernel, b=b, p=p, blk=blk, masked=masked, live_slots=n_live,
+                   max_abs_err=err, tol=tol)
+        if timed:
+            nbytes = 2 * 2 * b * 4 * kv + 4 * b * p + 4 * b + n_live * 2 * (kv + 4 * hkv)
+            bytes_ms, ops_ms, bound_ms, bound_by = _bound(nbytes, 16 * kv * n_live,
+                                                          torch.bfloat16)
+            plain = la.attn3d_plain if kernel == "attn3d" else la.attn4d_plain
+            row.update(
+                ms=cuda_ms(lambda i: kern(q, *rings[i % copies], sp, qp, ks, vs, blk), 50),
+                plain_ms=cuda_ms(lambda i: plain(q, *rings[i % copies], sp, qp, ks, vs, blk),
+                                 5),
+                bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
+        rows.append(row)
+    check(torch.equal(outs[0], outs[1]), f"T6 != T7 at B={b} P={p} blk={blk}")
+    if timed:
+        def deq(r, s):                               # -> bf16 [b, hkv, p, 128]
+            r = r.view(b, p, hkv, 128).transpose(1, 2).float()
+            return (r * s.reshape(b, hkv, p, 1)).to(torch.bfloat16).contiguous()
+
+        kvs = [(deq(k, ks), deq(v, vs)) for k, v in rings3]
+        mask = live[:, None, None, :]
+        qs = q.view(b, hkv * 4, 1, 128)
+        lib = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            qs, *kvs[i % copies], attn_mask=mask, enable_gqa=True), 20)
+        for row in rows:
+            row.update(library_ms=lib, library="SDPA with the boolean mask over bf16 "
+                                               "dequantized rings")
+        del kvs
+    for row in rows:
+        log(f"[1] {row['kernel']} B={b} P={p} blk={blk}: {json.dumps(row)}")
+    return rows
+
+
+def phase1_layout():
+    """T4 and T5 at the int4-unpack tool's shapes (B = 32, P = 2088, timed)
+    and ragged ones (P = 77, B = 1; 4 kv heads), T6 and T7 at the layout
+    tool's (B = 16, P = 2088, each blk timed), each blk also masked (checked),
+    and P = 77, B = 1 masked (checked). Returns the rows."""
+    rows = []
+    for kernel in ("attn8", "attn4"):
+        rows.append(_t45_row(kernel, 32, LAYOUT_P, LAYOUT_KV, 750, True))
+        rows.append(_t45_row(kernel, 1, 77, LAYOUT_KV, 751, False))
+        rows.append(_t45_row(kernel, 5, 300, 512, 752, False))
+    for i, blk in enumerate(LAYOUT_BLKS):
+        rows += _t67_rows(16, LAYOUT_P, blk, 760 + i, True, False)
+        rows += _t67_rows(16, LAYOUT_P, blk, 770 + i, False, True)
+    rows += _t67_rows(1, 77, 256, 780, False, True)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: the tools path
 # ---------------------------------------------------------------------------
 
 def phase6():
-    """The three ported profile tools at their defaults on the card,
+    """The five ported profile tools at their defaults on the card,
     through their functions. Every launch count is checked against the
     tools' structure: each timed loop calls its wrappers once to warm up
     and `iters` times inside the captured CUDA graph (replays launch
-    without the wrappers). Returns (launches, results)."""
+    without the wrappers); the int4-unpack tool's numeric check adds one
+    T4 and one T5 call, and must hold within T5_CHECK_RTOL, the tolerance
+    of its CPU test. Returns (launches, results)."""
+    from voxtral_tpu_torch.tools.profile_attn_layout import profile_attn_layout
     from voxtral_tpu_torch.tools.profile_dma_ceiling import profile_dma_ceiling
+    from voxtral_tpu_torch.tools.profile_int4_unpack import profile_int4_unpack
     from voxtral_tpu_torch.tools.profile_q8_matmul_roofline import (
         MATRICES, profile_q8_matmul_roofline,
     )
@@ -855,26 +1045,43 @@ def phase6():
     roof = profile_q8_matmul_roofline()
     stream = profile_weight_stream()
     dma = profile_dma_ceiling()
+    unpack = profile_int4_unpack()
+    layout = profile_attn_layout()
     launches = _counts()                            # ... and ends
     want = dict.fromkeys(launches, 0)
     per_q8 = len(MATRICES) * roof["layers"] * (1 + roof["iters"])
     want.update(w8a16_gemv=per_q8, wread=per_q8, fused_logits_argmax=1 + roof["iters"],
                 pure_stream=len(TENSORS) * stream["layers"] * (1 + stream["iters"]),
                 bf16_matmul=len(TENSORS) * stream["layers"] * (1 + stream["iters"]),
-                rd=dma["layers"] * (1 + dma["iters"]))
+                rd=dma["layers"] * (1 + dma["iters"]),
+                attn8=unpack["layers"] * (1 + unpack["iters"]) + 1,
+                attn4=unpack["layers"] * (1 + unpack["iters"]) + 1,
+                attn3d=len(layout["blks"]) * layout["layers"] * (1 + layout["iters"]),
+                attn4d=len(layout["blks"]) * layout["layers"] * (1 + layout["iters"]))
     for name, res in (("profile_q8_matmul_roofline", roof),
-                      ("profile_weight_stream", stream), ("profile_dma_ceiling", dma)):
+                      ("profile_weight_stream", stream), ("profile_dma_ceiling", dma),
+                      ("profile_int4_unpack", unpack), ("profile_attn_layout", layout)):
         log(f"[6] {name}: {json.dumps(res)}")
     check(launches == want, f"tools path launches {launches} != {want}")
+    check(unpack["check_err"] <= unpack["check_tol"],
+          f"T5 against T4 on identical values: {unpack['check_err']} > {unpack['check_tol']}")
     ceilings = dict(t1_int8_weights=roof["read_gbps"], t2_bf16_weights=stream["stream_gbps"],
                     t3_bf16_stack=stream["t3_gbps"], torch_matmul_stack=stream["matmul_gbps"],
                     t11_int8_rings=dma["gbps"], k2_q8_stack=roof["stack_gbps"],
-                    k3_q8_logits=roof["logits_gbps"])
+                    k3_q8_logits=roof["logits_gbps"], t4_int8_attn=unpack["t4_gbps"],
+                    t5_int4_attn=unpack["t5_gbps"],
+                    **{f"t{t}_blk{blk}": layout[f"t{t}_gbps_{blk}"]
+                       for blk in layout["blks"] for t in (6, 7)})
     for key, v in ceilings.items():
         check(np.isfinite(v) and v > 0, f"{key}: {v} GB/s")
+    ratios = dict(t5_over_t4=unpack["t5_over_t4"],
+                  **{f"t7_over_t6_blk{blk}": layout[f"t7_over_t6_{blk}"]
+                     for blk in layout["blks"]})
+    log(f"[6] time ratios: {json.dumps(ratios)}")
     log(f"[6] measured GB/s: {json.dumps(ceilings)}; launches {json.dumps(launches)}; "
         f"{time.perf_counter() - t0:.1f} s")
-    return launches, dict(roofline=roof, weight_stream=stream, dma_ceiling=dma)
+    return launches, dict(roofline=roof, weight_stream=stream, dma_ceiling=dma,
+                          int4_unpack=unpack, attn_layout=layout)
 
 
 # ---------------------------------------------------------------------------
@@ -883,11 +1090,12 @@ def phase6():
 
 def _count_modules():
     from voxtral_tpu_torch.ops import bf16_matmul as bm
+    from voxtral_tpu_torch.ops import layout_attention as lay
     from voxtral_tpu_torch.ops import logits_argmax as la
     from voxtral_tpu_torch.ops import q8_matmul as qm
     from voxtral_tpu_torch.ops import read_ceiling as rc
     from voxtral_tpu_torch.ops import ring_attention as ra
-    return ra, qm, la, rc, bm
+    return ra, qm, la, rc, bm, lay
 
 
 def _reset_counts():
@@ -899,9 +1107,9 @@ def _reset_counts():
 def _counts():
     """{kernel: launches} of every kernel, and "q8_mm": the Q8 large-M
     route's calls (not a kernel)."""
-    ra, qm, la, rc, bm = _count_modules()
+    ra, qm, la, rc, bm, lay = _count_modules()
     return {**ra.LAUNCHES, **qm.LAUNCHES, **la.LAUNCHES, **rc.LAUNCHES, **bm.LAUNCHES,
-            **qm.LARGE_M_CALLS}
+            **lay.LAUNCHES, **qm.LARGE_M_CALLS}
 
 
 def phase2():
@@ -1390,7 +1598,7 @@ def ceiling_shares(rows):
     shape; K3 (argmax, B = 16) against T1 (int8 table) or T2 (bf16 table)
     on the [131072, 3072] table; K1-int8 (B = 16, nv = 2080) against T11's
     rate applied to the bytes of its bound. Beside each, the share of the
-    data-sheet bound."""
+    data-sheet bound. T4-T7 (timed cases) against T11's rate too."""
     def one(kernel, **pick):
         return next(r for r in rows if r["kernel"] == kernel and "ms" in r
                     and all(r.get(k) == v for k, v in pick.items()))
@@ -1411,6 +1619,14 @@ def ceiling_shares(rows):
     k1_bytes = k1["bytes_ms"] * HBM_BYTES_PER_S / 1e3
     out["K1-int8 B=16 nv=2080"] = dict(ceiling="T11", share=k1_bytes / rate / k1["ms"],
                                        bound_share=k1["bound_ms"] / k1["ms"])
+    for label, kernel, pick in (("T4 B=32", "attn8", {}), ("T5 B=32", "attn4", {}),
+                                *((f"T{6 + i} B=16 blk={blk}", kernel, dict(blk=blk))
+                                  for blk in LAYOUT_BLKS
+                                  for i, kernel in enumerate(("attn3d", "attn4d")))):
+        r = one(kernel, **pick)
+        nbytes = r["bytes_ms"] * HBM_BYTES_PER_S / 1e3
+        out[label] = dict(ceiling="T11", share=nbytes / rate / r["ms"],
+                          bound_share=r["bound_ms"] / r["ms"])
     log(f"[1] shares of the measured ceilings: {json.dumps(out)}")
     return out
 
@@ -1420,7 +1636,7 @@ def ceiling_shares(rows):
 MAIN_PATH = ("ring_gqa_attention", "ring_gqa_attention_int8", "ring_gqa_attention_enc",
              "w8a16_gemv", "fused_logits_argmax", "q8_mm")
 TOOLS_PATH = ("wread", "pure_stream", "bf16_matmul", "rd", "w8a16_gemv",
-              "fused_logits_argmax")
+              "fused_logits_argmax", "attn8", "attn4", "attn3d", "attn4d")
 
 
 def _kernel_entry(rows, launches, name, source, replaces, pick):
@@ -1446,7 +1662,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase0()
-    rows = phase1() + phase1_fleet() + phase1_q8() + phase1_tools()
+    rows = phase1() + phase1_fleet() + phase1_q8() + phase1_tools() + phase1_layout()
     ceiling_shares(rows)
     log(f"[1] done at {time.perf_counter() - t_start:.1f} s")
     phase2()
@@ -1488,6 +1704,14 @@ def main() -> int:
                       "tools/profile_weight_stream.py:98", dict(matrix="w13")),
         _kernel_entry(rows, tool_launches, "rd", "read_ceiling.cu",
                       "tools/profile_dma_ceiling.py:28", {}),
+        _kernel_entry(rows, tool_launches, "attn8", "layout_attention.cu",
+                      "tools/profile_int4_unpack.py:83", dict(b=32)),
+        _kernel_entry(rows, tool_launches, "attn4", "layout_attention.cu",
+                      "tools/profile_int4_unpack.py:131", dict(b=32)),
+        _kernel_entry(rows, tool_launches, "attn3d", "layout_attention.cu",
+                      "tools/profile_attn_layout.py:52", dict(blk=512)),
+        _kernel_entry(rows, tool_launches, "attn4d", "layout_attention.cu",
+                      "tools/profile_attn_layout.py:87", dict(blk=512)),
     ]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi_line())

@@ -21,8 +21,10 @@ from voxtral_tpu.weights import params_to_safetensors
 from voxtral_tpu.weights import random_params as jax_random_params
 from voxtral_tpu_torch.ops import read_ceiling
 from voxtral_tpu_torch.tools import inspect_weights, quantize
+from voxtral_tpu_torch.tools.profile_attn_layout import profile_attn_layout
 from voxtral_tpu_torch.tools.profile_colsum_split import profile_colsum_split
 from voxtral_tpu_torch.tools.profile_dma_ceiling import profile_dma_ceiling
+from voxtral_tpu_torch.tools.profile_int4_unpack import profile_int4_unpack
 from voxtral_tpu_torch.tools.profile_q8_matmul_roofline import profile_q8_matmul_roofline
 from voxtral_tpu_torch.tools.profile_weight_stream import profile_weight_stream
 from voxtral_tpu_torch.weights import SafetensorsFile, save_safetensors
@@ -163,8 +165,28 @@ def test_colsum_split_sweep_runs_on_the_cpu_and_keeps_the_target():
             assert res[f"{c}_ms_{t}"] > 0 and res[f"{c}_gbps_{t}"] > 0
 
 
+def test_layout_tools_run_on_the_cpu_at_a_tiny_size():
+    """The tools' byte counts: the rings a pass reads (int4 unpack: gb8 and
+    gb8 / 2), rings plus scales (layout; sp not counted)."""
+    unpack = profile_int4_unpack(2, slots=40, kv_dim=256, layers=3, iters=2, device="cpu")
+    layout = profile_attn_layout(2, slots=40, kv_heads=2, blks=(128, 256), layers=3, iters=2,
+                                 device="cpu")
+    assert unpack["bytes8"] == 3 * 2 * 2 * 40 * 256 == 2 * unpack["bytes4"]
+    assert layout["bytes"] == 3 * (2 * 2 * 40 * 256 + 2 * 2 * 2 * 40 * 4)
+    assert unpack["check_err"] <= unpack["check_tol"]
+    assert unpack["t5_over_t4"] == unpack["t5_ms"] / unpack["t4_ms"]
+    for res, pairs in ((unpack, [("t4_ms", "t4_gbps"), ("t5_ms", "t5_gbps")]),
+                       (layout, [(f"t{t}_ms_{b}", f"t{t}_gbps_{b}")
+                                 for b in (128, 256) for t in (6, 7)])):
+        assert res["device"] == "cpu" and res["power_limit"] is None
+        for ms, rate in pairs:
+            assert res[ms] > 0 and res[rate] > 0
+    assert layout["t7_over_t6_256"] == layout["t7_ms_256"] / layout["t6_ms_256"]
+
+
 @pytest.mark.parametrize("tool", [profile_q8_matmul_roofline, profile_weight_stream,
-                                  profile_dma_ceiling, profile_colsum_split])
+                                  profile_dma_ceiling, profile_colsum_split,
+                                  profile_int4_unpack, profile_attn_layout])
 def test_profile_tools_default_to_cuda(tool):
     if torch.cuda.is_available():
         pytest.skip("checks the refusal on a machine without CUDA")

@@ -150,10 +150,18 @@ def quantize_kv_int4(x: torch.Tensor, kv_heads: int, head_dim: int):
     b, s, _ = x.shape
     h2 = head_dim // 2
     x4, scales = _amax_scales(x, kv_heads, head_dim, 7.0)
-    q = torch.clamp(torch.round(x4 / scales[..., None]), -8, 7).to(torch.int32)
-    packed = (q[..., :h2] & 0xF) | (q[..., h2:] * 16)      # in [-128, 127]
-    return (packed.to(torch.int8).reshape(b, s, kv_heads * h2),
+    q = torch.clamp(torch.round(x4 / scales[..., None]), -8, 7)
+    return (pack_int4(q).reshape(b, s, kv_heads * h2),
             scales.transpose(1, 2).contiguous())
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """Nibble pack, the inverse of `unpack_int4`: signed int4 codes [..., hd]
+    (any dtype, values in [-8, 8)) -> int8 [..., hd/2], byte c holding lane
+    c in its low nibble and lane c + hd/2 in its high one."""
+    q = codes.to(torch.int32)
+    h2 = q.shape[-1] // 2
+    return ((q[..., :h2] & 0xF) | (q[..., h2:] * 16)).to(torch.int8)  # in [-128, 127]
 
 
 def unpack_int4(packed: torch.Tensor):

@@ -19,6 +19,10 @@ Phases (any failure raises and the script exits non-zero):
      prefill's M = 38, the largest M = 64); K3 (fused tied logits + argmax)
      in argmax and logits mode on int8 and bf16 tables at B = 1 and 16, an
      f32 table, f32 queries, and constructed ties (the first index wins).
+     The new code's edges, checked: K1-enc at S = 17 and 100, more rows
+     than a pass, Sx = 0, nv = 65, split grids at B = 1 and 2; K3 at B = 5
+     and 9, V = 4096 + 37. Timed rows log their bound share (bound / time)
+     and their time over the library call's.
      The tools' kernels at the tools' shapes: T1 (wread) at the decoder's
      Q8 matrices and T11 (rd) at [16, 2088, 1024] rings, bit for bit; T2
      (pure_stream) at the five merged bf16 tensors, whose per-block word
@@ -409,9 +413,18 @@ def _ring_row(c, dtype, what, kernel, timed):
             plain_ms=cuda_ms(lambda i: _ring_call(ra.ring_gqa_attention_reference, c, i), 5),
             library_ms=cuda_ms(lambda i: sdpa[i % copies](), 20),
             bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
+        _shares(row)
         del sdpa
     log(f"[1] {what}: {json.dumps(row)}")
     return row
+
+
+def _shares(row):
+    """A timed row's bound share (bound / time) and its time over the
+    library call's (None where no single call computes the function)."""
+    row.update(bound_share=row["bound_ms"] / row["ms"],
+               vs_library=None if row["library_ms"] is None
+               else row["ms"] / row["library_ms"])
 
 
 def phase1():
@@ -467,6 +480,44 @@ def phase1_fleet():
                 rows.append(_ring_row(c, dtype, f"{kernel} {ring} B={b} nv={nv} {dtype}",
                                       kernel, timed))
                 del c
+    return rows
+
+
+def phase1_edges():
+    """Checked (untimed) edges of the K1-enc and K3 kernels, against their
+    plain versions at the usual tolerances. K1-enc, each ring kind, bf16
+    (tensor cores, 80 query rows a pass): S = 17 and S = 100 (ragged warps;
+    100 rows take two passes over the tiles), S = 100 with two query heads
+    per kv head (200 rows, three passes), Sx = 0, nv = 65 (a ragged last
+    tile), each at B = 5 (one block per stream and kv head), and the split
+    grid at B = 1 and 2; f32 (CUDA cores) at S = 17 and Sx = 0. K3, int8
+    and bf16 tables with bf16 h, both modes: B = 5 and 9 (ragged n-tiles)
+    at V = 4096 + 37 (a ragged last tile). Returns the rows."""
+    import torch
+    k = "ring_gqa_attention_enc"
+    enc = FLEET_ENC
+    edges = [("S=17", dict(enc, s=17), 5, 928), ("S=100", dict(enc, s=100), 5, 928),
+             ("S=100 group 2", dict(enc, s=100, kv_heads=16), 5, 928),
+             ("Sx=0", dict(enc, sx=0), 5, 928), ("nv=65", enc, 5, 65),
+             ("split B=1", enc, 1, 928), ("split B=2", enc, 2, 928),
+             ("split B=1 nv=65", enc, 1, 65)]
+    rows, seed = [], 700
+    for ring in ("float", "int8", "int4"):
+        for label, shape, b, nv in edges:
+            seed += 1
+            c = _fleet_case(shape, ring, b, nv, torch.bfloat16, seed, 1)
+            rows.append(_ring_row(c, torch.bfloat16, f"{k} edge {label} {ring} B={b} nv={nv}",
+                                  k, False))
+        for label, shape in (("S=17", dict(enc, s=17)), ("Sx=0", dict(enc, sx=0))):
+            seed += 1
+            c = _fleet_case(shape, ring, 3, 928, torch.float32, seed, 1)
+            rows.append(_ring_row(c, torch.float32, f"{k} edge {label} {ring} B=3 f32", k,
+                                  False))
+    for table in ("int8", "bf16"):
+        for b in (5, 9):
+            for mode in ("argmax", "logits"):
+                seed += 1
+                rows.append(_k3_row(table, b, mode, seed, False, v=4096 + 37))
     return rows
 
 
@@ -611,6 +662,7 @@ def _k3_row(table_kind, b, mode, seed, timed, v=VOCAB, h_dtype=None, tie=False):
             library_ms=lib, library=None if lib is None else
             "torch.mm(out_dtype=f32)" + ("" if logits else " + torch.argmax (two calls)"),
             bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
+        _shares(row)
     log(f"[1] {what}: {json.dumps(row)}")
     return row
 
@@ -1163,11 +1215,12 @@ def _k1tp_rows(shape, ring, kernel, ms_, seed):
     version on the same inputs within K1's bf16 tolerance (2e-2 of
     max|ref|); `max_abs_err` is the largest of those errors. Each slice is
     also compared with the matching lanes of the whole kernel call: the
-    kernels split the ring by slots, not heads, so a head's arithmetic does
-    not depend on the head count, and a row records whether all slices
-    were bit for bit (`exact`). Each m: rank 0's call timed with its plain
-    version, SDPA on the slice and the bound of its inputs. Returns the
-    rows."""
+    kernels split the ring by slots, not heads (K1-enc's bf16 route splits
+    only below half the SMs' worth of (stream, kv head) pairs, not at B =
+    16), so a head's arithmetic does not depend on the head count, and a
+    row records whether all slices were bit for bit (`exact`). Each m:
+    rank 0's call timed with its plain version, SDPA on the slice and the
+    bound of its inputs. Returns the rows."""
     import torch
     from voxtral_tpu_torch.ops import ring_attention as ra
     dtype = torch.bfloat16
@@ -1209,6 +1262,7 @@ def _k1tp_rows(shape, ring, kernel, ms_, seed):
             plain_ms=cuda_ms(lambda i: _ring_call(ra.ring_gqa_attention_reference, cr, i), 5),
             library_ms=cuda_ms(lambda i: sdpa[i % copies](), 20),
             bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
+        _shares(row)
         del sdpa, cr
         log(f"[1] K1-tp {kernel} {ring} m={m}: {json.dumps(row)}")
         rows.append(row)
@@ -1990,12 +2044,12 @@ def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, m
             and not getattr(e, "is_user_annotation", False) and e.key not in cpu_keys]
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
-    enc_us = sum(r[0] for r in rows if "ring_enc_kernel" in r[2])
+    enc_us = sum(r[0] for r in rows if "ring_enc_" in r[2])       # f32, mma, merge
     dec_us = sum(r[0] for r in rows if "ring_partial" in r[2] or "ring_merge" in r[2])
     gemm_us = sum(r[0] for r in rows if "nvjet" in r[2] or "splitKreduce" in r[2]
                   or "gemm" in r[2].lower() and "w8a16" not in r[2])
     k2_us = sum(r[0] for r in rows if "w8a16_" in r[2])
-    k3_us = sum(r[0] for r in rows if "logits_kernel" in r[2])
+    k3_us = sum(r[0] for r in rows if "logits_kernel" in r[2] or "logits_mma_kernel" in r[2])
     share = total_us / 1e6 / wall_s
     log(f"[5] profile {mode} (aged state): device busy {total_us / 1e3:.3f} ms of "
         f"{wall_s * 1e3:.2f} ms unprofiled wall (share {share:.4f}); K1-enc "
@@ -2079,8 +2133,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase0()
-    rows = (phase1() + phase1_fleet() + phase1_q8() + phase1_tools() + phase1_layout()
-            + phase1_ring_layout() + phase1_tp())
+    rows = (phase1() + phase1_fleet() + phase1_edges() + phase1_q8() + phase1_tools()
+            + phase1_layout() + phase1_ring_layout() + phase1_tp())
     ceiling_shares(rows)
     log(f"[1] done at {time.perf_counter() - t_start:.1f} s")
     phase2()

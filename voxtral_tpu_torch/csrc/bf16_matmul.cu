@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;                 // 4 warps
@@ -52,13 +54,7 @@ constexpr int kChunk = 16 * kSteps * kWarps;  // 256 rows of K per chunk
 constexpr int kXsRow = kChunk + 8;            // padded shared row of x (bf16)
 constexpr int kMaxM = 64;                     // BF16_MATMUL_MAX_ROWS in ops/bf16_matmul.py
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using mma_common::mma_bf16;
 
 // Column j (0..3) of two rows' 4-column words as one bf16x2: the low half
 // from row `lo`, the high half from row `hi`.

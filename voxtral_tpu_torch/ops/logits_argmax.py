@@ -20,7 +20,10 @@ keeps its own dtype, the scale multiplies the f32 sum, linear.py:50-54).
   table on CUDA.
 A CPU tensor takes the plain version; a CUDA tensor launches K3 (argmax or
 logits mode, one launch either way, counted together in `LAUNCHES`) or
-raises.
+raises. K3's route is a dispatch on dtype (`k3_plan`): a bf16 table, or an
+int8 table with bf16 h, runs its products on the tensor cores (mma.sync,
+one block per SM streaming the table); an f32 table, or an int8 table with
+f32 h, on the CUDA cores in f32.
 """
 
 from __future__ import annotations
@@ -30,10 +33,17 @@ import functools
 
 import torch
 
-from voxtral_tpu_torch.ops._scratch import zeroed_scratch
+from voxtral_tpu_torch.ops._scratch import sm_count, zeroed_scratch
 from voxtral_tpu_torch.quant import Quantized
 
-_BLOCK_ROWS, _MAX_BT = 512, 16             # = kBlockRows, kMaxBT in the source
+# = kBlockRows, kMaxBT, kWarps in the source: vocab rows per block of the
+# CUDA-core route, streams per grid.y row, warps per block
+_BLOCK_ROWS, _MAX_BT, _WARPS = 512, 16, 8
+# the tensor-core route's shared memory: h in fragment order, two tiles'
+# partial sums (16 KB) and at least two stages of 16 rows x 128 columns per
+# warp, within the card's opt-in limit (227 KB on the H100) less
+# kSmemReserve
+_SMEM_LIMIT = 232448 - 2048
 _H_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TABLE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _N_COUNTERS = 1 << 12
@@ -75,12 +85,32 @@ def logits_argmax_plain(h: torch.Tensor, table: torch.Tensor, scales=None, *,
     return tok.to(torch.int32)
 
 
+def k3_plan(table_dtype, h_dtype, b: int, v: int, d: int, sms: int) -> tuple[str, int, int]:
+    """(route, blocks, scratch entries) of a K3 call: the route by dtype
+    ("tensor_cores" for a bf16 table, or int8 with bf16 h; "cuda_cores"
+    otherwise), grid.x (ceil(V / 512) on the CUDA cores; on the tensor cores
+    one block per SM, fewer when there are fewer 16-row tiles than SMs),
+    and the argmax partials' length (blocks x ceil(B / 16) x 16). Raises if
+    the tensor cores' shared memory cannot hold h for this D."""
+    if table_dtype == torch.bfloat16 or (table_dtype == torch.int8
+                                         and h_dtype == torch.bfloat16):
+        n_tiles = 1 if b <= 8 else 2
+        h_bytes = -(-d // 128) * 8 * n_tiles * 256
+        stage = 16 * 128 * table_dtype.itemsize
+        if h_bytes + 16384 + 2 * _WARPS * stage > _SMEM_LIMIT:
+            raise ValueError(f"D = {d}: h does not fit the kernel's shared memory")
+        route, blocks = "tensor_cores", min(sms, -(-v // 16))
+    else:
+        route, blocks = "cuda_cores", -(-v // _BLOCK_ROWS)
+    return route, blocks, blocks * -(-b // _MAX_BT) * _MAX_BT
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from voxtral_tpu_torch import _build
     fn = _build.load("logits_argmax.cu").logits_argmax_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ci] * 3 + [vp] * 9 + [ci] * 3 + [vp]
+    fn.argtypes = [ci] * 3 + [vp] * 9 + [ci] * 4 + [vp]
     fn.restype = ci
     return fn
 
@@ -115,6 +145,8 @@ def fused_logits_argmax(h: torch.Tensor, table: torch.Tensor, scales=None, *,
             raise ValueError(f"tensor on {t.device}, expected {dev}")
         if not t.is_contiguous():
             raise ValueError("fused_logits_argmax needs contiguous tensors")
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    _, blocks, n_part = k3_plan(table.dtype, h.dtype, b, v, d, sm_count(index))
     ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731
     out = best = part_val = part_idx = counters = None
     if logits:
@@ -123,16 +155,13 @@ def fused_logits_argmax(h: torch.Tensor, table: torch.Tensor, scales=None, *,
         out = torch.empty((b,), dtype=torch.int32, device=dev)
         if with_value:
             best = torch.empty((b,), dtype=torch.float32, device=dev)
-        n_part = -(-v // _BLOCK_ROWS) * -(-b // _MAX_BT) * _MAX_BT
         part_val = torch.empty((n_part,), dtype=torch.float32, device=dev)
         part_idx = torch.empty((n_part,), dtype=torch.int32, device=dev)
-        counters = zeroed_scratch(dev.index if dev.index is not None
-                                  else torch.cuda.current_device(),
-                                  "fused_logits_argmax", _N_COUNTERS)
+        counters = zeroed_scratch(index, "fused_logits_argmax", _N_COUNTERS)
     err = _lib()(_TABLE_CODES[table.dtype], _H_CODES[h.dtype], int(logits), h.data_ptr(),
                  table.data_ptr(), ptr(scales), out.data_ptr() if logits else None,
                  None if logits else out.data_ptr(), ptr(best), ptr(part_val), ptr(part_idx),
-                 ptr(counters), b, v, d, torch.cuda.current_stream(dev).cuda_stream)
+                 ptr(counters), b, v, d, blocks, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_logits_argmax kernel launch failed: CUDA error {err}")
     LAUNCHES["fused_logits_argmax"] += 1

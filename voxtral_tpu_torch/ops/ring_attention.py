@@ -18,7 +18,10 @@ dispatcher the decoder and the incremental encoder call (counterpart of
   * "ring_gqa_attention_int8" (K1-int8, same source): S = 1, int8 rings
     with k_scale/v_scale [B, Hkv, P];
   * "ring_gqa_attention_enc" (K1-enc, `csrc/ring_attention_enc.cu`): S > 1,
-    or int4-packed rings (any S); float, int8 or int4 rings.
+    or int4-packed rings (any S); float, int8 or int4 rings. Its route is a
+    dispatch on q's dtype (`enc_plan`): bf16 runs on the tensor cores
+    (mma.sync, 32-slot tiles, split over blocks when the grid is small, a
+    merge kernel then), f32 on the CUDA cores (f32 throughout, for parity).
   K1 and K1-int8 are built for head_dim 64 and 128, K1-enc for 64 (the
   encoder's); all take q, float rings and extra columns of one dtype, f32
   or bf16. Anything else raises on CUDA; there is no fallback to the plain
@@ -49,6 +52,7 @@ import math
 
 import torch
 
+from voxtral_tpu_torch.ops._scratch import sm_count
 from voxtral_tpu_torch.quant import unpack_int4
 
 _NEG = -1e30
@@ -60,6 +64,10 @@ _HEAD_DIMS = {"ring_gqa_attention": (64, 128), "ring_gqa_attention_int8": (64, 1
 # own) must fit in it.
 _SPLIT_SLOTS = 256
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# = kTile, kMaxTiles in csrc/ring_attention_enc.cu: ring slots (or extra
+# columns) per tile of the tensor-core route, the unit its splits are
+# counted in, and the most tiles one split may hold
+_ENC_TILE, _ENC_MAX_TILES = 32, 256
 
 # Kernel launches, one plain integer per kernel; a wrapper adds one where
 # it launches its kernel and nowhere else.
@@ -213,6 +221,26 @@ def _check_supported(q, k_ring, v_ring, slot_pos, *, heads, kv_heads,
     return kernel, 2 if packed else 1 if scaled else 0
 
 
+def enc_plan(dtype, b: int, kv_heads: int, p: int, sx: int, sms: int) -> tuple[str, int]:
+    """(route, splits) of a K1-enc call: bf16 q takes the tensor cores,
+    f32 q the CUDA cores (one split). On the tensor cores a block holds one
+    (stream, kv head); when there are fewer of those than half the SMs
+    (B = 1 and 2 at 32 heads), each one's 32-slot tiles (ring, then extra
+    columns) are split over blocks, about two blocks per SM in all, no
+    split empty and none longer than the kernel takes (256 tiles). A
+    tensor-parallel rank's half of the heads at B >= 8 is not split, so its
+    heads' arithmetic is the whole call's."""
+    if dtype == torch.float32:
+        return "cuda_cores", 1
+    if dtype != torch.bfloat16:
+        raise ValueError(f"K1-enc takes f32 or bf16 q, got {dtype}")
+    tiles = -(-p // _ENC_TILE) + -(-sx // _ENC_TILE)
+    units = b * kv_heads
+    want = 1 if 2 * units >= sms else min(tiles, -(-2 * sms // units))
+    per = min(-(-tiles // want), _ENC_MAX_TILES)
+    return "tensor_cores", -(-tiles // per)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib(source: str):
     from voxtral_tpu_torch import _build
@@ -223,7 +251,7 @@ def _lib(source: str):
         fn.argtypes = [ci, ci, ci] + [vp] * 15 + [ci] * 6 + [ctypes.c_float, vp]
     else:
         fn = lib.ring_gqa_attention_enc_launch
-        fn.argtypes = [ci, ci, ci] + [vp] * 12 + [ci] * 7 + [ctypes.c_float, vp]
+        fn.argtypes = [ci, ci, ci] + [vp] * 15 + [ci] * 7 + [ctypes.c_float, ci, vp]
     fn.restype = ci
     return fn
 
@@ -266,13 +294,21 @@ def _launch(q, k_ring, v_ring, slot_pos, q_pos, *, kernel, ring_kind, window,
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(q)
     if kernel == "ring_gqa_attention_enc":
+        _, splits = enc_plan(q.dtype, b, kv_heads, p, sx, sm_count(
+            dev.index if dev.index is not None else torch.cuda.current_device()))
+        o_part = m_part = l_part = None
+        if splits > 1:
+            o_part = torch.empty((b, heads, s, splits, head_dim), dtype=torch.float32,
+                                 device=dev)
+            m_part = torch.empty((b, heads, s, splits), dtype=torch.float32, device=dev)
+            l_part = torch.empty_like(m_part)
         err = _lib("ring_attention_enc.cu")(
             _DTYPE_CODES[q.dtype], ring_kind, head_dim, q.data_ptr(),
             k_ring.data_ptr(), v_ring.data_ptr(), ptr(k_scale), ptr(v_scale),
             sp.data_ptr(), qp.data_ptr(), ptr(extra_k) if sx else None,
             ptr(extra_v) if sx else None, xp.data_ptr() if sx else None,
-            nv.data_ptr(), out.data_ptr(), b, s, p, sx, heads, kv_heads,
-            window, scale, stream)
+            nv.data_ptr(), ptr(o_part), ptr(m_part), ptr(l_part), out.data_ptr(), b,
+            s, p, sx, heads, kv_heads, window, scale, splits, stream)
     else:
         n_parts = -(-p // _SPLIT_SLOTS) + 1
         o_part = torch.empty((b, heads, n_parts, head_dim), dtype=torch.float32,

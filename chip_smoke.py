@@ -19,9 +19,10 @@ Phases (any failure raises and the script exits non-zero):
      prefill's M = 38, the largest M = 64); K3 (fused tied logits + argmax)
      in argmax and logits mode on int8 and bf16 tables at B = 1 and 16, an
      f32 table, f32 queries, and constructed ties (the first index wins).
-     The new code's edges, checked: K1-enc at S = 17 and 100, more rows
-     than a pass, Sx = 0, nv = 65, split grids at B = 1 and 2; K3 at B = 5
-     and 9, V = 4096 + 37. Timed rows log their bound share (bound / time)
+     The new code's edges, checked: K1-int8 at nv = 58 and 1000, Sx = 0
+     and 256, group 8, hd 64 with group 8, f32; K1-enc at S = 17 and 100,
+     more rows than a pass, Sx = 0, nv = 65, split grids at B = 1 and 2;
+     K3 at B = 5 and 9, V = 4096 + 37. Timed rows log their bound share (bound / time)
      and their time over the library call's.
      The tools' kernels at the tools' shapes: T1 (wread) at the decoder's
      Q8 matrices and T11 (rd) at [16, 2088, 1024] rings, bit for bit; T2
@@ -480,6 +481,35 @@ def phase1_fleet():
                 rows.append(_ring_row(c, dtype, f"{kernel} {ring} B={b} nv={nv} {dtype}",
                                       kernel, timed))
                 del c
+    return rows
+
+
+def phase1_int8_edges():
+    """Checked (untimed) edges of K1-int8, against its plain version at the
+    usual tolerances (each row also checks the masked stream and an
+    all-masked call). bf16 (tensor cores) at the fleet decoder's shapes:
+    nv 58 (the first step after prefill) at B 5; nv 1000 (neither a
+    multiple of the 16-slot tile nor of the 256-slot split) at B 5; Sx 0 at
+    B 16 (nv 2080) and at B 1 (nv 37); Sx 256 (the extra columns fill a
+    split); group 8 (32 query heads over 4 kv heads: every column of the
+    n-tile); hd 64 with group 8 at nv 300 and 50. f32 (CUDA cores) at nv
+    1000. Returns the rows."""
+    import torch
+    k = "ring_gqa_attention_int8"
+    dec = FLEET_DEC
+    hd64 = dict(dec, heads=16, kv_heads=2, head_dim=64, p=320, sx=9)
+    edges = [("nv=58", dec, 5, 58, torch.bfloat16), ("nv=1000", dec, 5, 1000, torch.bfloat16),
+             ("Sx=0", dict(dec, sx=0), 16, 2080, torch.bfloat16),
+             ("Sx=0 nv=37", dict(dec, sx=0), 1, 37, torch.bfloat16),
+             ("Sx=256", dict(dec, sx=256), 5, 300, torch.bfloat16),
+             ("group 8", dict(dec, kv_heads=4), 2, 500, torch.bfloat16),
+             ("hd 64 group 8", hd64, 3, 300, torch.bfloat16),
+             ("hd 64 group 8 nv=50", hd64, 3, 50, torch.bfloat16),
+             ("nv=1000 f32", dec, 5, 1000, torch.float32)]
+    rows = []
+    for i, (label, shape, b, nv, dtype) in enumerate(edges):
+        c = _fleet_case(shape, "int8", b, nv, dtype, 900 + i, 1)
+        rows.append(_ring_row(c, dtype, f"{k} edge {label} B={b} nv={nv} {dtype}", k, False))
     return rows
 
 
@@ -2045,7 +2075,8 @@ def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, m
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
     enc_us = sum(r[0] for r in rows if "ring_enc_" in r[2])       # f32, mma, merge
-    dec_us = sum(r[0] for r in rows if "ring_partial" in r[2] or "ring_merge" in r[2])
+    dec_us = sum(r[0] for r in rows if "ring_partial" in r[2] or "ring_merge" in r[2]
+                 or "ring_dec_" in r[2])
     gemm_us = sum(r[0] for r in rows if "nvjet" in r[2] or "splitKreduce" in r[2]
                   or "gemm" in r[2].lower() and "w8a16" not in r[2])
     k2_us = sum(r[0] for r in rows if "w8a16_" in r[2])
@@ -2133,7 +2164,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase0()
-    rows = (phase1() + phase1_fleet() + phase1_edges() + phase1_q8() + phase1_tools()
+    rows = (phase1() + phase1_fleet() + phase1_int8_edges() + phase1_edges() + phase1_q8()
+            + phase1_tools()
             + phase1_layout() + phase1_ring_layout() + phase1_tp())
     ceiling_shares(rows)
     log(f"[1] done at {time.perf_counter() - t_start:.1f} s")

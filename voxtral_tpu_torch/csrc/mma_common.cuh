@@ -1,8 +1,9 @@
 // Tensor-core and asynchronous-copy building blocks shared by the port's
-// mma.sync kernels (ring_attention_enc.cu, logits_argmax.cu, w8a16.cu,
-// bf16_matmul.cu): the m16n8k16 bf16 product with an f32 accumulator,
-// ldmatrix (plain and transposed), cp.async with its group waits, and the
-// exact int8 -> bf16 conversion.
+// mma.sync kernels (ring_attention.cu, ring_attention_enc.cu,
+// logits_argmax.cu, w8a16.cu, bf16_matmul.cu): the m16n8k16 bf16 product
+// with an f32 accumulator, ldmatrix (plain and transposed), cp.async with its
+// group waits, two exact int8 -> bf16 conversions, the in-register 8 x 8
+// transpose and one-instruction 2^x.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major) a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
@@ -86,6 +87,39 @@ __device__ __forceinline__ uint2 int8x4_to_bf16(uint32_t w) {
   for (int i = 0; i < 4; ++i)
     f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
   return make_uint2(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]));
+}
+
+// 4 int8 codes (code i in byte i) -> the bf16 pairs (I0, I1) and (I2, I3),
+// exact, in 8 instructions per word: 128 + (code & 127) is a bf16 whose
+// mantissa holds those bits, 128 + (code & 128) one whose exponent holds the
+// sign bit (128 or 256), both built by a byte permute, and one bf16x2
+// subtraction per pair leaves the code.
+template <int I0, int I1, int I2, int I3>
+__device__ __forceinline__ uint2 int8x4_to_bf16_pairs(uint32_t w) {
+  const uint32_t mag = w & 0x7F7F7F7Fu, sgn = w & 0x80808080u;
+  auto pair = [&](uint32_t sel) {
+    uint32_t x = __byte_perm(mag, 0x43434343u, sel), y = __byte_perm(sgn, 0x43434343u, sel);
+    __nv_bfloat162 d = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&x),
+                               *reinterpret_cast<__nv_bfloat162*>(&y));
+    return *reinterpret_cast<uint32_t*>(&d);
+  };
+  return make_uint2(pair(0x4040 | I0 | (I1 << 8)), pair(0x4040 | I2 | (I3 << 8)));
+}
+
+// An 8 x 8 b16 matrix held as mma fragments (lane l: row l / 4, elements
+// 2 (l % 4) and 2 (l % 4) + 1) -> its transpose, in the same layout.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// 2^x in one MUFU instruction (2 ulp; 0 for x below -126, as the masked
+// columns' -5e29 needs)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace mma_common

@@ -20,30 +20,65 @@
 // codes convert exactly; accumulation is f32. The extra columns carry no
 // scales.
 //
-// Bound: bytes. Per call the kernel must read the K/V rows below nv (and
-// their scales), q and the positions, and write the output; its arithmetic
-// is 4 flops per K/V element read, far below the card's ratio of operations
-// to bytes. Float rings: 34 MB for B=1 and a full 8320-slot bf16 ring, ~10 us
-// at 3.35 TB/s. Int8 rings halve the ring bytes: at the fleet's B=16 and a
-// full 2080-slot ring, codes, scales, q and out come to ~70 MB, ~21 us.
+// Bound: bytes. A call must read the K/V rows below nv (and their scales),
+// q and the positions, and write the output; its arithmetic is 4 flops per
+// K/V element. Float rings: 34 MB for B = 1 and a full 8320-slot bf16 ring,
+// ~10 us at 3.35 TB/s. Int8 rings halve the ring bytes: at the fleet's B =
+// 16 (Hq 32, Hkv 8, hd 128, nv 2080, Sx 20, one stream masked) the codes,
+// scales, q and out a call needs come to ~67 MB, 19.88 us.
 //
-// Design (split-KV, "flash decoding"):
-//   * grid (splits, Hkv * ceil(group/4), B): a block owns one kv head, up
-//     to 4 of its query heads, and 256 consecutive ring slots, so every K/V
-//     byte is read once and shared by the group's query heads; the last
-//     split index holds the extra columns;
-//   * the read bound nv is a device int32 the blocks read themselves (no
-//     host sync, safe inside a CUDA graph): blocks wholly past nv exit at
-//     once, so early in a stream the kernel reads only the filled prefix;
-//   * K/V rows are read with 16-byte vector loads (8 bf16, 4 f32 or 16 int8
-//     elements), one row per 4-32 neighbouring threads, 2-4 rows in flight
-//     per thread; int8 codes are converted in registers, so the ring is
-//     never dequantized in device memory; a block reads its split's slice of
-//     the scale rows once, into shared memory;
-//   * each block writes its f32 (max, sum, unnormalised output); a second
-//     small kernel merges the splits and writes the output in q's dtype.
-// wgmma/TMA are not used: at one query row per head the product is
-// matrix-vector work, and the bound is the memory, not the arithmetic.
+// Both routes split the ring into fixed splits of kSplit = 256 slots
+// (never derived from B, Hkv or the SM count, so a tensor-parallel rank's
+// heads compute the whole call's bits): grid (splits + 1, kv heads
+// [x query-head blocks], B), the last split index holding the extra
+// columns. The read bound nv is a device int32 the blocks read themselves
+// (no host sync, safe in a CUDA graph): blocks wholly past nv exit at once.
+// Each block writes its split's f32 (max, sum, unnormalised output); a
+// second small kernel merges the splits in a fixed order (no atomics:
+// identical bits in every run).
+//
+// Two routes, chosen by the wrapper (ops/ring_attention.dec_plan):
+//
+// CUDA cores (ring_partial_kernel, ring_merge_kernel): K1 (float rings, f32
+// or bf16) and K1-int8 with f32 q (parity mode: f32 throughout). A block
+// owns one kv head, up to 4 of its query heads and one split; K/V rows are
+// read with 16-byte vector loads (int8 codes converted in registers),
+// scores go to shared memory, a softmax pass and a PV pass follow.
+//
+// Tensor cores (ring_dec_mma_kernel, ring_dec_merge_kernel): K1-int8 with
+// bf16 q, the serving route. On the CUDA cores K1-int8 was held back by its
+// arithmetic and serial phases, not by bytes (int-to-float converts at a
+// quarter of the FMA rate, per-row shuffle reductions, three barrier-
+// separated passes, 38 KB of shared memory per 4-warp block: 79 us at the
+// fleet shape). Here:
+//   * mma.sync m16n8k16 in the transposed shape: S^T = K Q^T with a
+//     16-slot tile as the m rows (A = K by ldmatrix) and the kv head's
+//     query heads as the n columns (group <= 8, padded to 8), then O^T =
+//     V^T P^T with head lanes as rows (A = V by ldmatrix.trans) and P^T as
+//     B (the S^T fragments transposed in registers by movmatrix). Against
+//     FlashAttention-2's shape (queries as rows, padded to 16) this halves
+//     the products, the exponentials and the registers of O and q;
+//   * the codes are never converted in shared memory or device memory: a
+//     lane's ldmatrix word of K holds codes 4t..4t+3 of one slot (q's k
+//     order is permuted within each 16 lanes to match), its .trans word of
+//     V two lanes of two slots; both become bf16 pairs in registers, exact,
+//     by byte permutes and one bf16x2 subtraction (no int-to-float convert);
+//   * each of the block's 4 warps takes every 4th 16-slot tile of the split
+//     and streams it by 16-byte cp.async (codes, positions, scales) through
+//     its own 2 stages, so a warp waits with __syncwarp only; shared memory
+//     is XOR-swizzled by row, so ldmatrix meets no bank conflict; 34 KB and
+//     at most 128 registers a thread put 4 blocks (16 warps) on an SM;
+//   * per warp an online softmax in f32, base 2 (ex2), scores scaled per
+//     slot by 1/sqrt(hd) log2(e) ks_j, p = round_bf16(e vs_j), O in f32
+//     rescaled when a head's max moves; the warps' (m, l, O) merge once in
+//     shared memory at the end, in warp order; the splits merge one warp
+//     per (stream, query head), up to 16 splits' loads at once;
+//   * the extra columns (bf16 rows) take the same path with unit scales and
+//     q in the plain k order; a stream whose query position is invalid
+//     writes its neutral partials without reading the ring.
+// At the fleet shape the route is held back by its memory pipeline and its
+// fixed per-block costs, not by the tensor cores: it runs at about 0.6 of
+// the byte bound (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,10 +86,12 @@
 
 #include <type_traits>
 
+#include "mma_common.cuh"
 #include "ring_common.cuh"
 
 namespace {
 
+using namespace mma_common;
 using namespace ring_common;
 
 constexpr int kThreads = 128;     // 4 warps per block
@@ -341,6 +378,459 @@ ring_merge_kernel(const float* __restrict__ o_part, const float* __restrict__ m_
   out[((size_t)b * H + hq) * HD + d] = from_float<T>(acc / fmaxf(den, 1e-30f));
 }
 
+// ---------------------------------------------------------------------------
+// bf16 q on int8 rings: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 16;          // ring slots (or extra columns) per warp tile
+constexpr int kWarps = 4;          // warps per block; warp w takes tiles w, w + 4, ...
+constexpr int kMaxGroup = 8;       // query heads per kv head: one n-tile (_DEC_MAX_GROUP)
+constexpr int kInt8Stages = 2;     // int8 tiles in flight per warp (bf16 rows: 1)
+constexpr int kMinBlocks = 4;      // blocks per SM the registers must allow
+constexpr int kPosInvalid = -(1 << 30);
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory of one block: per warp, kInt8Stages int8 K and V tiles (or
+// half as many bf16 ones) with each stage's positions and scales; the
+// warps' (m, l) for the final merge (their O reuses the tiles' bytes).
+template <int HD>
+struct DecSmem {
+  int8_t tiles[kWarps][kInt8Stages][2][kTile * HD];
+  int pos[kWarps][kInt8Stages][kTile];
+  float ks[kWarps][kInt8Stages][kTile];
+  float vs[kWarps][kInt8Stages][kTile];
+  float m[kWarps][kMaxGroup];
+  float l[kWarps][kMaxGroup];
+};
+
+// Byte offset of 16-byte chunk c of row j in a tile of RB-byte rows, XOR-
+// swizzled so that chunk c of 8 consecutive rows lies in 8 distinct bank
+// groups (ldmatrix, plain or transposed, reads 8 such rows at once).
+template <int RB>
+__device__ __forceinline__ int chunk_off(int j, int c) {
+  constexpr int CPR = RB / 16;
+  static_assert(CPR == 4 || CPR % 8 == 0, "rows of 64 bytes or a multiple of 128");
+  return (j * CPR + (CPR == 4 ? c ^ ((j >> 1) & 3) : c ^ (j & 7))) * 16;
+}
+
+struct DecArgs {
+  const __nv_bfloat16* q;         // [B, H * HD]
+  const int8_t* k;                // [B, P, Hkv * HD] codes
+  const int8_t* v;
+  const float* k_scale;           // [B, Hkv, P]
+  const float* v_scale;
+  const int* slot_pos;            // [B, P]
+  const int* q_pos;               // [B]
+  const __nv_bfloat16* xk;        // [B, Sx, Hkv * HD]
+  const __nv_bfloat16* xv;
+  const int* x_pos;               // [B, Sx]
+  const int* n_valid;
+  float* o_part;                  // [B, H, n_ring_splits + 1, HD]
+  float* m_part;                  // [B, H, n_ring_splits + 1]
+  float* l_part;
+  int P, Sx, H, Hkv, n_ring_splits, window;
+  float scale;
+};
+
+// One block's split: `count` rows of element type R (int8 codes with per-row
+// scales ksb / vsb, or the bf16 extra columns with unit scales) from kb / vb
+// (kv head h's lanes, rows `stride` elements apart), positions `pos`. qb: the
+// group's G query heads. Writes the split's (m, l, O) of each query head at
+// part0 + g * n_parts.
+//
+// Products in the transposed shape: S^T = K Q^T with a tile's 16 slots as
+// the m rows (A = K by ldmatrix) and the query heads as the n columns (B =
+// q, padded to 8), then O^T = V^T P^T with head lanes as the m rows (A = V
+// by ldmatrix.trans) and P^T as B (the S^T fragments transposed by
+// movmatrix). A lane holds slots g and g + 8 of heads 2t and 2t + 1; each
+// head's max over the tile's slots takes three shuffles.
+template <typename R, int HD>
+__device__ __forceinline__ void dec_attend(const DecArgs& a, DecSmem<HD>& sm,
+                                           const __nv_bfloat16* __restrict__ qb, int G,
+                                           const R* __restrict__ kb, const R* __restrict__ vb,
+                                           int stride, const int* __restrict__ pos,
+                                           const float* __restrict__ ksb,
+                                           const float* __restrict__ vsb, int count, int qp,
+                                           int lo, size_t part0, int n_parts) {
+  constexpr bool kCodes = sizeof(R) == 1;
+  constexpr int RB = HD * (int)sizeof(R);            // bytes of a K or V row
+  constexpr int CPR = RB / 16;                        // its 16-byte chunks
+  constexpr int EPC = 16 / (int)sizeof(R);            // elements per chunk
+  constexpr int kStages = kInt8Stages / (int)sizeof(R);
+  constexpr int kStageBytes = 2 * kTile * RB;
+  constexpr int NK = HD / 16;                         // k-steps of S^T; m-tiles of O^T
+  static_assert(kStages >= 1, "at least one stage");
+  static_assert(kMaxGroup * HD * 4 <= kInt8Stages * 2 * kTile * HD,
+                "the warps' O fits in their tiles' bytes");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  int8_t* stages = &sm.tiles[warp][0][0][0];
+  const float scale_l2 = a.scale * kLog2e;
+
+  // q as B fragments (head g; zero past G). For code tiles the k order is
+  // permuted within each 16 lanes so that b0 / b1 hold lanes 4t .. 4t+3,
+  // the 4 codes of one ldmatrix word of K; bf16 tiles keep the plain order
+  // (b0 = lanes 2t, 2t+1; b1 = 2t+8, 2t+9).
+  uint32_t qf[NK][2];
+  {
+    const __nv_bfloat16* qr = qb + (size_t)min(g, G - 1) * HD;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t w0 = 0u, w1 = 0u;
+      if (g < G) {
+        if (kCodes) {
+          const uint2 w = *reinterpret_cast<const uint2*>(qr + 16 * kk + 4 * t);
+          w0 = w.x;
+          w1 = w.y;
+        } else {
+          w0 = *reinterpret_cast<const uint32_t*>(qr + 16 * kk + 2 * t);
+          w1 = *reinterpret_cast<const uint32_t*>(qr + 16 * kk + 8 + 2 * t);
+        }
+      }
+      qf[kk][0] = w0;
+      qf[kk][1] = w1;
+    }
+  }
+
+  const int n_tiles = (count + kTile - 1) / kTile;
+  const int mine = warp < n_tiles ? (n_tiles - warp + kWarps - 1) / kWarps : 0;
+
+  // Start this warp's i-th tile (tile warp + 4 i of the split) into stage
+  // i % kStages. Rows past `count` are zero-filled without a global read,
+  // their positions invalid and their scales 0.
+  auto issue = [&](int i) {
+    const int j0 = (warp + i * kWarps) * kTile;
+    const int n = min(kTile, count - j0);
+    const int s = i % kStages;
+    int8_t* st = stages + s * kStageBytes;
+#pragma unroll
+    for (int idx = lane; idx < 2 * kTile * CPR; idx += 32) {
+      const int which = idx / (kTile * CPR);
+      const int j = (idx / CPR) % kTile;
+      const int c = idx % CPR;
+      const R* src = (which ? vb : kb) + (size_t)(j0 + min(j, n - 1)) * stride + c * EPC;
+      cp_async16(st + which * kTile * RB + chunk_off<RB>(j, c), src, j < n ? 16 : 0);
+    }
+    if (lane < kTile) {
+      const int j = lane;
+      if (j < n) {
+        cp_async4(&sm.pos[warp][s][j], pos + j0 + j);
+        if (kCodes) {
+          cp_async4(&sm.ks[warp][s][j], ksb + j0 + j);
+          cp_async4(&sm.vs[warp][s][j], vsb + j0 + j);
+        } else {
+          sm.ks[warp][s][j] = sm.vs[warp][s][j] = 1.f;
+        }
+      } else {
+        sm.pos[warp][s][j] = kPosInvalid;
+        sm.ks[warp][s][j] = sm.vs[warp][s][j] = 0.f;
+      }
+    }
+  };
+
+  // O^T: m-tile mt holds 16 head lanes (rows g, g + 8) x heads 2t, 2t + 1
+  float o[NK][4];
+#pragma unroll
+  for (int mt = 0; mt < NK; ++mt) o[mt][0] = o[mt][1] = o[mt][2] = o[mt][3] = 0.f;
+  float m_run[2] = {0.5f * kNeg, 0.5f * kNeg};     // heads 2t, 2t + 1
+  float l_run[2] = {0.f, 0.f};
+
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) {
+    if (s < mine) issue(s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<kStages - 1>();        // tile i landed (this lane's copies) ...
+    __syncwarp();                        // ... and every lane's
+    const int s = i % kStages;
+    const int8_t* kt = stages + s * kStageBytes;
+    const int8_t* vt = kt + kTile * RB;
+
+    // S^T = K Q^T: rows g, g + 8 = the tile's slots, columns 2t, 2t + 1 = heads
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+    const int kr = (lane & 7) + ((lane >> 3) & 1) * 8;     // ldmatrix row of this lane
+    if constexpr (kCodes) {
+      // matrices (slots 0-7 | 8-15) x chunks c0, c0 + 1: chunk = k-step
+#pragma unroll
+      for (int c0 = 0; c0 < CPR; c0 += 2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kt + chunk_off<RB>(kr, c0 + (lane >> 4)));
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint2 lo8 = int8x4_to_bf16_pairs<0, 1, 2, 3>(kf[2 * r]);       // slot g
+          const uint2 hi8 = int8x4_to_bf16_pairs<0, 1, 2, 3>(kf[2 * r + 1]);   // slot g + 8
+          const uint32_t af[4] = {lo8.x, hi8.x, lo8.y, hi8.y};
+          mma_bf16(sc, af, qf[c0 + r][0], qf[c0 + r][1]);
+        }
+      }
+    } else {
+      // k-step kk = chunks 2 kk (lanes 16 kk ..) and 2 kk + 1 (.. + 8)
+#pragma unroll
+      for (int kk = 0; kk < NK; ++kk) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kt + chunk_off<RB>(kr, 2 * kk + (lane >> 4)));
+        mma_bf16(sc, kf, qf[kk][0], qf[kk][1]);
+      }
+    }
+    // scale (base 2, ks_j) and mask per slot (one query position per
+    // stream); each head's max over the 16 slots: lanes of one t
+    const int* cpos = sm.pos[warp][s];
+    const float* cks = sm.ks[warp][s];
+    const float* cvs = sm.vs[warp][s];
+    float mx[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {                        // slot g + 8 e
+      const int j = g + 8 * e;
+      const int p = cpos[j];
+      const bool ok = p >= 0 && p <= qp && p >= lo;
+      const float f = scale_l2 * cks[j];
+      sc[2 * e] = ok ? sc[2 * e] * f : kNeg;
+      sc[2 * e + 1] = ok ? sc[2 * e + 1] * f : kNeg;
+    }
+    float alpha[2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {                        // head 2t + c
+      mx[c] = fmaxf(sc[c], sc[2 + c]);
+      mx[c] = fmaxf(mx[c], __shfl_xor_sync(0xffffffffu, mx[c], 4));
+      mx[c] = fmaxf(mx[c], __shfl_xor_sync(0xffffffffu, mx[c], 8));
+      mx[c] = fmaxf(mx[c], __shfl_xor_sync(0xffffffffu, mx[c], 16));
+      const float m_new = fmaxf(m_run[c], mx[c]);
+      alpha[c] = ex2(m_run[c] - m_new);
+      m_run[c] = m_new;
+    }
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+      l_run[0] *= alpha[0];
+      l_run[1] *= alpha[1];
+#pragma unroll
+      for (int mt = 0; mt < NK; ++mt) {
+        o[mt][0] *= alpha[0];
+        o[mt][1] *= alpha[1];
+        o[mt][2] *= alpha[0];
+        o[mt][3] *= alpha[1];
+      }
+    }
+    // p = round_bf16(e * vs_j); l sums e. P^T's B fragments: the packed
+    // (slot, head) pairs transposed to (head, slot) pairs.
+    uint32_t pb[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v_s = cvs[g + 8 * e];
+      float pe[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float ex = ex2(sc[2 * e + c] - m_run[c]);
+        l_run[c] += ex;
+        pe[c] = ex * v_s;
+      }
+      pb[e] = movmatrix_trans(pack_bf16x2(pe[0], pe[1]));
+    }
+    // O^T += V^T P^T
+    if constexpr (kCodes) {
+      // matrices (slots 0-7 | 8-15) x chunks c0, c0 + 1, transposed: a
+      // lane's word holds lanes 2g, 2g+1 of slots 2t, 2t+1 (or 2t+8, 2t+9);
+      // m-tile c = chunk c, its row g lane 16c + 2g, row g + 8 lane 16c + 2g + 1
+#pragma unroll
+      for (int c0 = 0; c0 < CPR; c0 += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vt + chunk_off<RB>(kr, c0 + (lane >> 4)));
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint2 lo8 = int8x4_to_bf16_pairs<0, 2, 1, 3>(vf[2 * r]);       // slots 2t, 2t+1
+          const uint2 hi8 = int8x4_to_bf16_pairs<0, 2, 1, 3>(vf[2 * r + 1]);   // 2t+8, 2t+9
+          const uint32_t af[4] = {lo8.x, lo8.y, hi8.x, hi8.y};
+          mma_bf16(o[c0 + r], af, pb[0], pb[1]);
+        }
+      }
+    } else {
+      // m-tile mt: rows g, g + 8 = lanes 16 mt + g, 16 mt + 8 + g
+      const int vr = (lane & 7) + (lane >> 4) * 8;        // slot row of this lane
+#pragma unroll
+      for (int mt = 0; mt < NK; ++mt) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vt + chunk_off<RB>(vr, 2 * mt + ((lane >> 3) & 1)));
+        mma_bf16(o[mt], vf, pb[0], pb[1]);
+      }
+    }
+    __syncwarp();                          // stage s is free again
+    if (i + kStages < mine) issue(i + kStages);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // The warps' (m, l, O) merge in shared memory, in warp order.
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    l_run[c] += __shfl_xor_sync(0xffffffffu, l_run[c], 4);
+    l_run[c] += __shfl_xor_sync(0xffffffffu, l_run[c], 8);
+    l_run[c] += __shfl_xor_sync(0xffffffffu, l_run[c], 16);
+  }
+  __syncthreads();                         // every warp is done with its tiles
+  float* red = reinterpret_cast<float*>(&sm.tiles[0][0][0][0]);   // [kWarps][G][HD]
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int hh = 2 * t + c;
+    if (hh < G) {
+      if (g == 0) {
+        sm.m[warp][hh] = m_run[c];
+        sm.l[warp][hh] = l_run[c];
+      }
+      float* orow = red + ((size_t)warp * G + hh) * HD;
+#pragma unroll
+      for (int mt = 0; mt < NK; ++mt) {
+        orow[kCodes ? 16 * mt + 2 * g : 16 * mt + g] = o[mt][c];
+        orow[kCodes ? 16 * mt + 2 * g + 1 : 16 * mt + 8 + g] = o[mt][2 + c];
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * HD; i += kWarps * 32) {
+    const int r = i / HD, d = i % HD;
+    float mx = 0.5f * kNeg;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm.m[w][r]);
+    float den = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = ex2(sm.m[w][r] - mx);
+      den = fmaf(f, sm.l[w][r], den);
+      acc = fmaf(f, red[((size_t)w * G + r) * HD + d], acc);
+    }
+    const size_t part = part0 + (size_t)r * n_parts;
+    a.o_part[part * HD + d] = acc;
+    if (d == 0) {
+      a.m_part[part] = mx;
+      a.l_part[part] = den;
+    }
+  }
+}
+
+// One block: stream b, kv head h with all its query heads, one split of
+// kSplit ring slots (or the extra columns, the last split index).
+template <int HD>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks) ring_dec_mma_kernel(const DecArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DecSmem<HD>& sm = *reinterpret_cast<DecSmem<HD>*>(smem_raw);
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.Hkv;
+  const int kv_dim = a.Hkv * HD;
+  const int n_parts = a.n_ring_splits + 1;
+  const size_t part0 = ((size_t)b * a.H + h * G) * n_parts + split;
+  const bool ring_rows = split < a.n_ring_splits;
+  int start = 0;
+  int count = a.Sx;
+  if (ring_rows) {
+    const int nv = min(*a.n_valid, a.P);
+    start = split * kSplit;
+    if (start >= nv) return;              // past the filled prefix
+    count = min(kSplit, nv - start);
+  }
+  const int qp = a.q_pos[b];
+  if (qp < 0) {                           // no column can pass the mask
+    for (int i = threadIdx.x; i < G * HD; i += kWarps * 32) {
+      const size_t part = part0 + (size_t)(i / HD) * n_parts;
+      a.o_part[part * HD + i % HD] = 0.f;
+      if (i % HD == 0) {
+        a.m_part[part] = 0.5f * kNeg;
+        a.l_part[part] = 0.f;
+      }
+    }
+    return;
+  }
+  const int lo = qp - (a.window - 1);
+  const __nv_bfloat16* qb = a.q + ((size_t)b * a.H + h * G) * HD;
+  if (ring_rows) {
+    const size_t row0 = (size_t)b * a.P + start;
+    const size_t col = row0 * kv_dim + h * HD;
+    const size_t sc0 = ((size_t)b * a.Hkv + h) * a.P + start;
+    dec_attend<int8_t, HD>(a, sm, qb, G, a.k + col, a.v + col, kv_dim, a.slot_pos + row0,
+                           a.k_scale + sc0, a.v_scale + sc0, count, qp, lo, part0, n_parts);
+  } else {
+    const size_t row0 = (size_t)b * a.Sx;
+    const size_t col = row0 * kv_dim + h * HD;
+    dec_attend<__nv_bfloat16, HD>(a, sm, qb, G, a.xk + col, a.xv + col, kv_dim,
+                                  a.x_pos + row0, nullptr, nullptr, count, qp, lo, part0,
+                                  n_parts);
+  }
+}
+
+// Merge the splits of one (stream, query head) per warp, in split order
+// (ring splits below nv, then the extra columns). Each lane owns HD / 32
+// output lanes; the partials of up to kMergeBatch splits are loaded at
+// once, so a row costs two memory latencies (the maxima, then everything
+// else) rather than one per split.
+constexpr int kMergeWarps = 8;
+constexpr int kMergeBatch = 16;
+
+template <int HD>
+__global__ void __launch_bounds__(kMergeWarps * 32)
+ring_dec_merge_kernel(const float* __restrict__ o_part, const float* __restrict__ m_part,
+                      const float* __restrict__ l_part, const int* __restrict__ n_valid,
+                      __nv_bfloat16* __restrict__ out, int P, int rows, int n_ring_splits,
+                      int has_extra) {
+  constexpr int V = HD / 32;
+  using Vec = typename std::conditional<V == 4, float4, float2>::type;
+  const int row = blockIdx.x * kMergeWarps + (threadIdx.x >> 5);   // b * H + hq
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int nv = min(max(*n_valid, 0), P);
+  const int n_act = (nv + kSplit - 1) / kSplit;
+  const int n = n_act + has_extra;
+  const size_t base = (size_t)row * (n_ring_splits + 1);
+  auto part = [&](int s) { return base + (s < n_act ? s : n_ring_splits); };
+  float mx = 0.5f * kNeg;
+  for (int s = lane; s < n; s += 32) mx = fmaxf(mx, m_part[part(s)]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  float acc[V] = {};
+  float den = 0.f;
+  for (int s0 = 0; s0 < n; s0 += kMergeBatch) {
+    Vec ov[kMergeBatch];
+#pragma unroll
+    for (int u = 0; u < kMergeBatch; ++u)
+      if (s0 + u < n) ov[u] = *reinterpret_cast<const Vec*>(o_part + part(s0 + u) * HD + lane * V);
+    const int s = s0 + lane % kMergeBatch;         // lane u holds split s0 + u's weight
+    const float w = s < n ? ex2(m_part[part(s)] - mx) : 0.f;
+    const float wl = s < n ? w * l_part[part(s)] : 0.f;
+#pragma unroll
+    for (int u = 0; u < kMergeBatch; ++u) {
+      if (s0 + u >= n) break;
+      const float wu = __shfl_sync(0xffffffffu, w, u);
+      den += __shfl_sync(0xffffffffu, wl, u);
+      const float* o = reinterpret_cast<const float*>(&ov[u]);
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = fmaf(wu, o[e], acc[e]);
+    }
+  }
+  const float inv = 1.f / fmaxf(den, 1e-30f);
+#pragma unroll
+  for (int e = 0; e < V; ++e) out[(size_t)row * HD + lane * V + e] = __float2bfloat16(acc[e] * inv);
+}
+
+template <int HD>
+int launch_dec_mma(const DecArgs& a, __nv_bfloat16* out, int B, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(DecSmem<HD>);
+  static bool raised[64] = {};              // the shared-memory limit, per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && !raised[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ring_dec_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised[dev] = true;
+  }
+  const int has_extra = a.Sx > 0 ? 1 : 0;
+  ring_dec_mma_kernel<HD><<<dim3(a.n_ring_splits + has_extra, a.Hkv, B), kWarps * 32, smem,
+                            stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = B * a.H;
+  ring_dec_merge_kernel<HD><<<(rows + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0,
+                              stream>>>(a.o_part, a.m_part, a.l_part, a.n_valid, out, a.P,
+                                        rows, a.n_ring_splits, has_extra);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, typename R, int HD>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const void* slot_pos, const void* q_pos,
@@ -401,10 +891,12 @@ int launch_ring(int ring, int head_dim, const void* q, const void* k, const void
     return launch_hd<T, T>(head_dim, q, k, v, k_scale, v_scale, slot_pos, q_pos, xk, xv,
                            x_pos, n_valid, o_part, m_part, l_part, out, B, P, Sx, H,
                            Hkv, window, scale, stream);
-  if (ring == 1)
-    return launch_hd<T, int8_t>(head_dim, q, k, v, k_scale, v_scale, slot_pos, q_pos,
-                                xk, xv, x_pos, n_valid, o_part, m_part, l_part, out, B,
-                                P, Sx, H, Hkv, window, scale, stream);
+  if constexpr (std::is_same<T, float>::value) {   // bf16 q: the tensor-core route
+    if (ring == 1)
+      return launch_hd<T, int8_t>(head_dim, q, k, v, k_scale, v_scale, slot_pos, q_pos,
+                                  xk, xv, x_pos, n_valid, o_part, m_part, l_part, out, B,
+                                  P, Sx, H, Hkv, window, scale, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -414,7 +906,8 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, extra columns and out alike).
 // ring: 0 = K/V rings in q's dtype (K1); 1 = int8 rings with f32 scales
-// k_scale/v_scale [B, Hkv, P] (K1-int8). Pointers are device pointers;
+// k_scale/v_scale [B, Hkv, P] (K1-int8; f32 q only, bf16 q takes
+// ring_gqa_attention_int8_mma_launch). Pointers are device pointers;
 // n_valid is a device int32 scalar. The partial buffers hold
 // [B, H, ceil(P / kSplit) + 1] entries (x HD for o_part), kSplit = 256; Sx
 // must not exceed kSplit. head_dim is 64 or 128. Returns the CUDA error code
@@ -439,6 +932,37 @@ int ring_gqa_attention_launch(int dtype, int ring, int head_dim, const void* q,
                                       slot_pos, q_pos, xk, xv, x_pos, n_valid, o_part,
                                       m_part, l_part, out, B, P, Sx, H, Hkv, window,
                                       scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K1-int8 with bf16 q on the tensor cores: arguments as
+// ring_gqa_attention_launch's with dtype 1 and ring 1 (the partial buffers
+// hold ceil(P / kSplit) + 1 splits), plus split_slots, which must be
+// kSplit (the wrapper's plan and the kernel agree on it). The
+// group H / Hkv is at most 8.
+int ring_gqa_attention_int8_mma_launch(int head_dim, const void* q, const void* k,
+                                       const void* v, const void* k_scale,
+                                       const void* v_scale, const void* slot_pos,
+                                       const void* q_pos, const void* xk, const void* xv,
+                                       const void* x_pos, const void* n_valid, void* o_part,
+                                       void* m_part, void* l_part, void* out, int B, int P,
+                                       int Sx, int H, int Hkv, int window, float scale,
+                                       int split_slots, void* stream) {
+  if (split_slots != kSplit || Sx < 0 || Sx > kSplit || Hkv <= 0 || H % Hkv != 0 ||
+      H / Hkv > kMaxGroup || B <= 0 || P <= 0 || B > 65535 || Hkv > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const DecArgs a{static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
+                  static_cast<const int8_t*>(v), static_cast<const float*>(k_scale),
+                  static_cast<const float*>(v_scale), static_cast<const int*>(slot_pos),
+                  static_cast<const int*>(q_pos), static_cast<const __nv_bfloat16*>(xk),
+                  static_cast<const __nv_bfloat16*>(xv), static_cast<const int*>(x_pos),
+                  static_cast<const int*>(n_valid), static_cast<float*>(o_part),
+                  static_cast<float*>(m_part), static_cast<float*>(l_part), P, Sx, H, Hkv,
+                  (P + kSplit - 1) / kSplit, window, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (head_dim == 64) return launch_dec_mma<64>(a, o, B, s);
+  if (head_dim == 128) return launch_dec_mma<128>(a, o, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

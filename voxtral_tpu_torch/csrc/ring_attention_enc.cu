@@ -434,14 +434,6 @@ __device__ __forceinline__ uint2 nibbles_to_bf16(uint32_t u) {
                     as_u32(__hsub2(as_bf2(__byte_perm(u, 0x43u, 0x4342)), bias)));
 }
 
-// 2^x in one MUFU instruction (2 ulp; 0 for x below -126, as the masked
-// columns' -5e29 needs)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // Lane chunk c (8 bf16) of staged row j.
 __device__ __forceinline__ __nv_bfloat16* kv_chunk(__nv_bfloat16 (*rows)[kHD], int j, int c) {
   return rows[j] + ((c ^ (j & 7)) << 3);

@@ -16,7 +16,11 @@ dispatcher the decoder and the incremental encoder call (counterpart of
   * "ring_gqa_attention" (K1, `csrc/ring_attention.cu`): S = 1, rings in
     q's float dtype;
   * "ring_gqa_attention_int8" (K1-int8, same source): S = 1, int8 rings
-    with k_scale/v_scale [B, Hkv, P];
+    with k_scale/v_scale [B, Hkv, P]. Its route is a dispatch on q's dtype
+    (`dec_plan`): bf16 runs on the tensor cores (mma.sync, 16-slot tiles
+    by cp.async, codes converted in registers), f32 on the CUDA cores
+    (f32 throughout, for parity); both split the ring into fixed
+    256-slot splits and merge them in a second kernel;
   * "ring_gqa_attention_enc" (K1-enc, `csrc/ring_attention_enc.cu`): S > 1,
     or int4-packed rings (any S); float, int8 or int4 rings. Its route is a
     dispatch on q's dtype (`enc_plan`): bf16 runs on the tensor cores
@@ -59,10 +63,13 @@ _NEG = -1e30
 # the kernels' head_dim instantiations (the widths of voxtral_4b)
 _HEAD_DIMS = {"ring_gqa_attention": (64, 128), "ring_gqa_attention_int8": (64, 128),
               "ring_gqa_attention_enc": (64,)}
-# = kSplit in csrc/ring_attention.cu: ring slots per split. It sizes the
-# partial buffers, and the decode kernel's extra columns (one split of their
-# own) must fit in it.
+# = kSplit in csrc/ring_attention.cu: ring slots per split, on both decode
+# routes. It sizes the partial buffers, and the decode kernel's extra
+# columns (one split of their own) must fit in it.
 _SPLIT_SLOTS = 256
+# = kMaxGroup in csrc/ring_attention.cu: query heads per kv head on K1-int8's
+# tensor-core route (one 8-column n-tile)
+_DEC_MAX_GROUP = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # = kTile, kMaxTiles in csrc/ring_attention_enc.cu: ring slots (or extra
 # columns) per tile of the tensor-core route, the unit its splits are
@@ -241,18 +248,48 @@ def enc_plan(dtype, b: int, kv_heads: int, p: int, sx: int, sms: int) -> tuple[s
     return "tensor_cores", -(-tiles // per)
 
 
+def dec_plan(dtype, heads: int, kv_heads: int, head_dim: int, sx: int) -> tuple[str, int]:
+    """(route, split slots) of a K1-int8 call: bf16 q takes the tensor
+    cores, f32 q the CUDA cores, both `_SPLIT_SLOTS` slots a split. The
+    split never follows B, the kv heads or the card's SM count (none of
+    them is an input), so a tensor-parallel rank's heads compute the whole
+    call's bits. Refuses a dtype, head_dim, extra width or (tensor cores)
+    group the kernels are not built for."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"K1-int8 takes f32 or bf16 q, got {dtype}")
+    if head_dim not in _HEAD_DIMS["ring_gqa_attention_int8"]:
+        raise ValueError(f"head_dim {head_dim}: K1-int8 is built for "
+                         f"{_HEAD_DIMS['ring_gqa_attention_int8']}")
+    if sx > _SPLIT_SLOTS:
+        raise ValueError(f"{sx} extra columns > {_SPLIT_SLOTS}")
+    if dtype == torch.float32:
+        return "cuda_cores", _SPLIT_SLOTS
+    if heads % kv_heads or heads // kv_heads > _DEC_MAX_GROUP:
+        raise ValueError(f"group {heads}/{kv_heads}: K1-int8's tensor cores take "
+                         f"at most {_DEC_MAX_GROUP} query heads per kv head")
+    return "tensor_cores", _SPLIT_SLOTS
+
+
+_VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C launchers: name -> (source, function, argument types)
+_ENTRIES = {
+    "decode": ("ring_attention.cu", "ring_gqa_attention_launch",
+               [_CI] * 3 + [_VP] * 15 + [_CI] * 6 + [_CF, _VP]),
+    "decode_mma": ("ring_attention.cu", "ring_gqa_attention_int8_mma_launch",
+                   [_CI] + [_VP] * 15 + [_CI] * 6 + [_CF, _CI, _VP]),
+    "enc": ("ring_attention_enc.cu", "ring_gqa_attention_enc_launch",
+            [_CI] * 3 + [_VP] * 15 + [_CI] * 7 + [_CF, _CI, _VP]),
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _lib(source: str):
+def _lib(entry: str):
+    """The C launcher `entry` (an _ENTRIES key), built at first use."""
     from voxtral_tpu_torch import _build
-    lib = _build.load(source)
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    if source == "ring_attention.cu":
-        fn = lib.ring_gqa_attention_launch
-        fn.argtypes = [ci, ci, ci] + [vp] * 15 + [ci] * 6 + [ctypes.c_float, vp]
-    else:
-        fn = lib.ring_gqa_attention_enc_launch
-        fn.argtypes = [ci, ci, ci] + [vp] * 15 + [ci] * 7 + [ctypes.c_float, ci, vp]
-    fn.restype = ci
+    source, name, argtypes = _ENTRIES[entry]
+    fn = getattr(_build.load(source), name)
+    fn.argtypes = argtypes
+    fn.restype = _CI
     return fn
 
 
@@ -268,13 +305,16 @@ def _launch(q, k_ring, v_ring, slot_pos, q_pos, *, kernel, ring_kind, window,
     dev = q.device
     b, s, _ = q.shape
     p = k_ring.shape[1]
+    sx = 0 if extra_k is None else extra_k.shape[1]
+    route, split = "cuda_cores", _SPLIT_SLOTS
+    if kernel == "ring_gqa_attention_int8":
+        route, split = dec_plan(q.dtype, heads, kv_heads, head_dim, sx)
     i32 = torch.int32
     sp = slot_pos.to(i32).contiguous()
     qp = torch.as_tensor(q_pos, device=dev).reshape(b, s).to(i32).contiguous()
     if n_valid_slots is None:
         n_valid_slots = p
     nv = torch.as_tensor(n_valid_slots, device=dev).to(i32).reshape(())
-    sx = 0 if extra_k is None else extra_k.shape[1]
     data = [q, k_ring, v_ring] + ([extra_k, extra_v] if sx else [])
     tables = [sp, qp, nv]
     if k_scale is not None:
@@ -302,7 +342,7 @@ def _launch(q, k_ring, v_ring, slot_pos, q_pos, *, kernel, ring_kind, window,
                                  device=dev)
             m_part = torch.empty((b, heads, s, splits), dtype=torch.float32, device=dev)
             l_part = torch.empty_like(m_part)
-        err = _lib("ring_attention_enc.cu")(
+        err = _lib("enc")(
             _DTYPE_CODES[q.dtype], ring_kind, head_dim, q.data_ptr(),
             k_ring.data_ptr(), v_ring.data_ptr(), ptr(k_scale), ptr(v_scale),
             sp.data_ptr(), qp.data_ptr(), ptr(extra_k) if sx else None,
@@ -310,19 +350,22 @@ def _launch(q, k_ring, v_ring, slot_pos, q_pos, *, kernel, ring_kind, window,
             nv.data_ptr(), ptr(o_part), ptr(m_part), ptr(l_part), out.data_ptr(), b,
             s, p, sx, heads, kv_heads, window, scale, splits, stream)
     else:
-        n_parts = -(-p // _SPLIT_SLOTS) + 1
+        n_parts = -(-p // split) + 1
         o_part = torch.empty((b, heads, n_parts, head_dim), dtype=torch.float32,
                              device=dev)
         m_part = torch.empty((b, heads, n_parts), dtype=torch.float32, device=dev)
         l_part = torch.empty_like(m_part)
-        err = _lib("ring_attention.cu")(
-            _DTYPE_CODES[q.dtype], ring_kind, head_dim, q.data_ptr(),
-            k_ring.data_ptr(), v_ring.data_ptr(), ptr(k_scale), ptr(v_scale),
-            sp.data_ptr(), qp.data_ptr(), ptr(extra_k) if sx else None,
-            ptr(extra_v) if sx else None, xp.data_ptr() if sx else None,
-            nv.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
-            l_part.data_ptr(), out.data_ptr(), b, p, sx, heads, kv_heads,
-            window, scale, stream)
+        ptrs = (q.data_ptr(), k_ring.data_ptr(), v_ring.data_ptr(), ptr(k_scale),
+                ptr(v_scale), sp.data_ptr(), qp.data_ptr(), ptr(extra_k) if sx else None,
+                ptr(extra_v) if sx else None, xp.data_ptr() if sx else None,
+                nv.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
+                l_part.data_ptr(), out.data_ptr())
+        dims = (b, p, sx, heads, kv_heads, window, scale)
+        if route == "tensor_cores":
+            err = _lib("decode_mma")(head_dim, *ptrs, *dims, split, stream)
+        else:
+            err = _lib("decode")(_DTYPE_CODES[q.dtype], ring_kind, head_dim, *ptrs,
+                                 *dims, stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     LAUNCHES[kernel] += 1

@@ -939,9 +939,11 @@ def phase1_tools():
     for name, (k, n) in MERGED.items():
         seed += 1
         rows.append(_t3_row(name, k, n, T3_ROWS, seed, True))
-    for m in (1, 16, 64):
+    for m in (1, 16, 17, 64):
         rows.append(_t3_row("wq", *MERGED["wq"], m, 730 + m, False))
     rows.append(_t3_row("ragged", 1536 + 72, 1000, 5, 731, False))
+    rows.append(_t3_row("ragged K", 1536 + 72, 3072, 24, 732, False))
+    rows.append(_t3_row("ragged N", 3072, 1000, 24, 733, False))
     rows.append(_t11_row(T11_SHAPE, 0.375, 740, True))
     rows.append(_t11_row(T11_SHAPE, 1.0e-3, 741, False))
     rows.append(_t11_row((3, 77, 528), -2.5e-4, 742, False))

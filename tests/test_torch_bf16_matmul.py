@@ -66,21 +66,50 @@ def test_reference_tool_drops_the_k_tail(small_blocks):
     np.testing.assert_allclose(bm.bf16_matmul(xt, wt).numpy(), want_whole, rtol=0, atol=tol)
 
 
-@pytest.mark.parametrize("k,n", [(3072, 4096), (3072, 2048), (4096, 3072), (3072, 18432),
-                                 (9216, 3072), (1608, 1000), (8, 4)])
-@pytest.mark.parametrize("slots", [4 * 132, 6 * 132])
-def test_split_k_covers_k_in_one_wave(k, n, slots):
-    k_slice, splits = bm.split_k(k, n, slots)
-    assert k_slice % 16 == 0 and k_slice >= 16 and 1 <= splits <= 65535
-    assert k_slice * (splits - 1) < k <= k_slice * splits
-    tiles = -(-n // 32)
-    assert splits == 1 or tiles * splits <= slots          # one wave of blocks
+# The tools' five merged tensors (tools/profile_weight_stream.py), then a
+# ragged K and a ragged N.
+PLAN_SHAPES = [(3072, 4096), (3072, 2048), (4096, 3072), (3072, 18432), (9216, 3072),
+               (1608, 3072), (3072, 1000)]
+
+
+@pytest.mark.parametrize("k,n", PLAN_SHAPES)
+@pytest.mark.parametrize("m", [1, 24, 64])
+@pytest.mark.parametrize("per_sm", [2, 3])
+def test_t3_plan_covers_k_in_one_wave(k, n, m, per_sm):
+    """The plan's splits cover K, none is empty, each slice is whole
+    stages, a column tile's splits fit one cluster (at most 8), and the
+    grid (a block per column tile and split) fits one wave: `per_sm` blocks
+    on each of 132 SMs, fewer for clusters that do not pack the card's
+    8 GPCs of 16-18 SMs."""
+    resident = [per_sm * 132 - (c - 1) * 8 for c in range(1, 9)]
+    cols, stages, k_slice, splits = bm.t3_plan(m, k, n, resident)
+    assert cols == 128 and stages >= 2
+    assert k_slice % 64 == 0 and 1 <= splits <= 8
+    assert k_slice * (splits - 1) < k <= k_slice * splits        # covered, none empty
+    tiles = -(-n // cols)
+    assert splits == 1 or tiles * splits <= resident[splits - 1]  # one wave of blocks
 
 
 def test_kernel_entry_refuses_what_it_cannot_take():
+    """The kernel takes 1 <= M <= 64, K and N multiples of 8, x and w
+    16-byte aligned (whole 16-byte chunks of every row); the wrapper
+    refuses the rest before it looks for the card."""
     x = torch.zeros((4, 64), dtype=torch.bfloat16)
     w = torch.zeros((64, 128), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         bm.bf16_matmul_kernel(x, w)
     with pytest.raises(ValueError, match="unsupported device"):
         bm.bf16_matmul(x.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        bm.bf16_matmul_kernel(x, torch.zeros((64, 12), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        bm.bf16_matmul_kernel(torch.zeros((4, 12), dtype=torch.bfloat16),
+                              torch.zeros((12, 128), dtype=torch.bfloat16))
+    shifted = torch.zeros(64 * 128 + 4, dtype=torch.bfloat16)[4:].view(64, 128)
+    assert shifted.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        bm.bf16_matmul_kernel(x, shifted)
+    with pytest.raises(ValueError, match="1..64"):
+        bm.bf16_matmul_kernel(torch.zeros((65, 64), dtype=torch.bfloat16), w)
+    with pytest.raises(ValueError, match="1..64"):
+        bm.t3_plan(65, 64, 128, [264] * 8)

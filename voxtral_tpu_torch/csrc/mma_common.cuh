@@ -35,25 +35,39 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // Four 8 x 8 b16 matrices; lane l gives the address of row l % 8 of matrix
 // l / 8 (16 bytes), and receives row l / 4, elements 2 (l % 4) and 2 (l % 4) + 1
 // of each matrix in r[0..3].
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+// (The address as a pointer or as a shared-space address.)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  ldmatrix_x4(r, smem_addr(p));
 }
 
 // The same, each matrix transposed: lane l receives column l / 4, rows
 // 2 (l % 4) and 2 (l % 4) + 1.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  ldmatrix_x4_trans(r, smem_addr(p));
 }
 
 // 16 bytes global -> shared, not kept in L1; `bytes` < 16 zero-fills the
 // rest (0: no global read at all, `src` only needs to be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes = 16) {
+// The destination as a pointer or as a shared-space address (smem_addr).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes = 16) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
+               :: "r"(dst), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes = 16) {
+  cp_async16(smem_addr(dst), src, bytes);
 }
 
 // 4 bytes global -> shared

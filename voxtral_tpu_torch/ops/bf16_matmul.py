@@ -11,6 +11,11 @@ last K % 1536 rows, this product does not.
 A CPU tensor takes the plain version; a CUDA tensor launches T3 (counted
 in `LAUNCHES`) or raises. `torch.mm` is a yardstick for the kernel in
 `chip_smoke.py`, never a route here.
+
+What the kernel takes: 1 <= M <= 64, K % 8 == 0 and N % 8 == 0, x and w
+16-byte aligned (whole 16-byte chunks of every row, for its cp.async
+stages); every shape the tools use meets that. The wrapper refuses the rest
+before the card.
 """
 
 from __future__ import annotations
@@ -20,11 +25,12 @@ import functools
 
 import torch
 
-from voxtral_tpu_torch.ops._scratch import sm_count, zeroed_scratch
 
 BF16_MATMUL_MAX_ROWS = 64                 # = kMaxM in the source
-_COLS = 32                                # = kCols
-_N_COUNTERS = 1 << 16
+_COLS = 128                               # = kCols: columns per block
+_STAGE_ROWS = 64                          # = kStageRows: K rows per stage
+_STAGES = 4                               # = kStages: stages in the ring
+_MAX_SPLITS = 8                           # = kMaxSplits: one portable cluster
 
 LAUNCHES = {"bf16_matmul": 0}
 
@@ -38,14 +44,23 @@ def bf16_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.mm(x.float(), w.float())
 
 
-def split_k(k: int, n: int, slots: int) -> tuple[int, int]:
-    """(k_slice, splits): K split while the grid stays within `slots`
-    resident blocks (one wave), slices at least 256 rows (one chunk of the
-    kernel) and a multiple of 16."""
+def t3_plan(m: int, k: int, n: int, resident) -> tuple[int, int, int, int]:
+    """(column tile width, stages, k_slice, splits) of T3 on x [m, k] @ w
+    [k, n]. `resident[c - 1]`: the kernel's blocks resident at once on the
+    card when a column tile's splits form clusters of c blocks (c = 1..8).
+    A block per 128-column tile, and K split into the most splits (at most
+    8, one cluster) whose grid stays within one wave, each slice a whole
+    number of 64-row stages and no split empty. `m` is checked here; it
+    enters through `resident`, which the wrapper asks the runtime for at
+    m's 16-row tile count."""
+    if not 1 <= m <= BF16_MATMUL_MAX_ROWS:
+        raise ValueError(f"M = {m} rows: the kernel takes 1..{BF16_MATMUL_MAX_ROWS}")
     tiles = -(-n // _COLS)
-    splits = max(1, min(slots // tiles, -(-k // 256)))
-    k_slice = -(-(-(-k // splits)) // 16) * 16
-    return k_slice, -(-k // k_slice)
+    stages = -(-k // _STAGE_ROWS)                 # stages of the whole K
+    splits = max([1] + [c for c in range(2, min(_MAX_SPLITS, stages) + 1)
+                        if tiles * c <= resident[c - 1]])
+    k_slice = -(-stages // splits) * _STAGE_ROWS
+    return _COLS, _STAGES, k_slice, -(-k // k_slice)
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,35 +68,33 @@ def _lib():
     from voxtral_tpu_torch import _build
     lib = _build.load("bf16_matmul.cu")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.bf16_matmul_launch.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+    lib.bf16_matmul_launch.argtypes = [vp] * 3 + [ci] * 5 + [vp]
     lib.bf16_matmul_launch.restype = ci
-    lib.bf16_matmul_blocks_per_sm.argtypes = [ci, ctypes.POINTER(ctypes.c_int)]
-    lib.bf16_matmul_blocks_per_sm.restype = ci
+    lib.bf16_matmul_resident_blocks.argtypes = [ci, ci, ctypes.POINTER(ctypes.c_int)]
+    lib.bf16_matmul_resident_blocks.restype = ci
     return lib
 
 
 @functools.lru_cache(maxsize=None)
-def _slots(index: int, m_tiles: int) -> int:
-    """Resident blocks of the kernel for m_tiles 16-row tiles on card
-    `index`: blocks per SM (from the CUDA runtime) times SMs."""
-    blocks = ctypes.c_int(0)
+def _resident(index: int, m_tiles: int) -> tuple[int, ...]:
+    """Blocks of the kernel for m_tiles 16-row tiles resident at once on
+    card `index`, for clusters of 1..8 blocks (from the CUDA runtime)."""
+    out = []
     with torch.cuda.device(index):
-        err = _lib().bf16_matmul_blocks_per_sm(16 * m_tiles, ctypes.byref(blocks))
-    if err != 0 or blocks.value < 1:
-        raise RuntimeError(f"bf16_matmul occupancy query failed: CUDA error {err}")
-    return blocks.value * sm_count(index)
+        for c in range(1, _MAX_SPLITS + 1):
+            blocks = ctypes.c_int(0)
+            err = _lib().bf16_matmul_resident_blocks(16 * m_tiles, c, ctypes.byref(blocks))
+            if err != 0 or (c == 1 and blocks.value < 1):
+                raise RuntimeError(f"bf16_matmul occupancy query failed: CUDA error {err}")
+            out.append(blocks.value)
+    return tuple(out)
 
 
 def bf16_matmul_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """T3 on CUDA tensors: x bf16 [M, K], 1 <= M <= 64, K % 8 == 0, 16-byte
-    aligned; w bf16 [K, N], N % 4 == 0, 8-byte aligned; both contiguous.
-    Launches on the current stream; raises on anything else."""
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"bf16_matmul needs CUDA tensors, got {dev}")
+    """T3 on CUDA tensors: x bf16 [M, K], 1 <= M <= 64, K % 8 == 0; w bf16
+    [K, N], N % 8 == 0; both contiguous and 16-byte aligned. Launches on
+    the current stream; raises on anything else."""
     for t in (x, w):
-        if t.device != dev:
-            raise ValueError(f"tensor on {t.device}, expected {dev}")
         if t.dtype != torch.bfloat16 or t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"bf16_matmul takes contiguous 2-D bf16 tensors, got "
                              f"{t.dtype} {tuple(t.shape)}")
@@ -91,20 +104,18 @@ def bf16_matmul_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     n = w.shape[1]
     if not 1 <= m <= BF16_MATMUL_MAX_ROWS:
         raise ValueError(f"M = {m} rows: the kernel takes 1..{BF16_MATMUL_MAX_ROWS}")
-    if k % 8 or n % 4 or x.data_ptr() % 16 or w.data_ptr() % 8:
-        raise ValueError(f"K = {k} must be a multiple of 8, N = {n} of 4, x 16-byte and "
-                         "w 8-byte aligned")
-    if -(-n // _COLS) > _N_COUNTERS:
-        raise ValueError(f"N = {n} has more column tiles than the kernel's counters")
+    if k % 8 or n % 8 or x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"K = {k} and N = {n} must be multiples of 8, x and w 16-byte "
+                         "aligned")
+    dev = x.device
+    if dev.type != "cuda" or w.device != dev:
+        raise ValueError(f"bf16_matmul needs CUDA tensors on one card, got {dev}, "
+                         f"{w.device}")
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    k_slice, splits = split_k(k, n, _slots(index, -(-m // 16)))
-    counters = zeroed_scratch(index, "bf16_matmul", _N_COUNTERS)
+    _, _, k_slice, splits = t3_plan(m, k, n, _resident(index, -(-m // 16)))
     y = torch.empty((m, n), dtype=torch.float32, device=dev)
-    part = torch.empty((splits * m * n if splits > 1 else 1,), dtype=torch.float32,
-                       device=dev)
-    err = _lib().bf16_matmul_launch(x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(),
-                                    counters.data_ptr(), m, k, n, k_slice, splits,
-                                    torch.cuda.current_stream(dev).cuda_stream)
+    err = _lib().bf16_matmul_launch(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, n,
+                                    k_slice, splits, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bf16_matmul kernel launch failed: CUDA error {err}")
     LAUNCHES["bf16_matmul"] += 1

@@ -19,17 +19,20 @@ Phases (any failure raises and the script exits non-zero):
      prefill's M = 38, the largest M = 64); K3 (fused tied logits + argmax)
      in argmax and logits mode on int8 and bf16 tables at B = 1 and 16, an
      f32 table, f32 queries, and constructed ties (the first index wins).
-     The new code's edges, checked: K1-int8 at nv = 58 and 1000, Sx = 0
-     and 256, group 8, hd 64 with group 8, f32; K1-enc at S = 17 and 100,
-     more rows than a pass, Sx = 0, nv = 65, split grids at B = 1 and 2;
-     K3 at B = 5 and 9, V = 4096 + 37. Timed rows log their bound share (bound / time)
-     and their time over the library call's.
+     The new code's edges, checked: K1-int8 and K1 (float rings) at nv =
+     58 and 1000, Sx = 0 and 256, group 8, hd 64 with group 8, f32, and K1
+     with a bf16 group of 16 (the CUDA cores, by the plan); K1-enc at S =
+     17 and 100, more rows than a pass, Sx = 0, nv = 65, split grids at B
+     = 1 and 2; K3 at B = 5 and 9, V = 4096 + 37. Every ring row also
+     checks that a second launch gives the same bits. Timed rows log their
+     bound share (bound / time) and their time over the library call's.
      The tools' kernels at the tools' shapes: T1 (wread) at the decoder's
      Q8 matrices and T11 (rd) at [16, 2088, 1024] rings, bit for bit; T2
      (pure_stream) at the five merged bf16 tensors, whose per-block word
      sums must add up to the tensor's (every byte read) and whose time must
      grow with the bytes; T3 (bf16_matmul) at the same tensors, B = 24,
-     within 1e-4 of max|y|; ragged shapes checked. T4 (attn8, int8 rings)
+     within 1e-4 of max|y|, two launches bit-identical; M = 1, 16, 17 and
+     64, ragged K and N checked. T4 (attn8, int8 rings)
      and T5 (attn4, nibble-packed rings) at B = 32, P = 2088; T6 (attn3d)
      and T7 (attn4d, block-major rings) at B = 16, P = 2088, blk 256, 512
      and 1024, with the tool's positions and with masked slots and a fully
@@ -292,19 +295,21 @@ def _ring_check(c, dtype, what, kernel):
     Tolerance: f32 1e-5 (same arithmetic, another summation order); bf16
     2e-2 of max|out| (probabilities are rounded to bf16 against a split's
     or a running max in the kernels, against the global max in the plain
-    version). Also: the call went through `kernel`, the rows with an invalid
-    query position are zero, and so is every row when all positions are
-    invalid."""
+    version). Also: the call went through `kernel`, a second launch gives
+    the same bits, the rows with an invalid query position are zero, and so
+    is every row when all positions are invalid."""
     import torch
     from voxtral_tpu_torch.ops import ring_attention as ra
     before = dict(ra.LAUNCHES)
     out = _ring_call(ra.ring_gqa_attention, c)
+    out2 = _ring_call(ra.ring_gqa_attention, c)
     ref = _ring_call(ra.ring_gqa_attention_reference, c)
     dead = _ring_call(ra.ring_gqa_attention, c,
                       q_pos=torch.full_like(c["q_pos"], SLOT_INVALID))
     torch.cuda.synchronize()
-    check(ra.LAUNCHES[kernel] == before[kernel] + 2,
+    check(ra.LAUNCHES[kernel] == before[kernel] + 3,
           f"{what}: the call did not go through {kernel}")
+    check(torch.equal(out, out2), f"{what}: two launches differ")
     err = (out.float() - ref.float()).abs().max().item()
     tol = 1e-5 if dtype == torch.float32 else 2e-2 * ref.float().abs().max().item()
     check(torch.isfinite(out).all().item(), f"{what}: non-finite kernel output")
@@ -484,18 +489,20 @@ def phase1_fleet():
     return rows
 
 
-def phase1_int8_edges():
-    """Checked (untimed) edges of K1-int8, against its plain version at the
-    usual tolerances (each row also checks the masked stream and an
-    all-masked call). bf16 (tensor cores) at the fleet decoder's shapes:
-    nv 58 (the first step after prefill) at B 5; nv 1000 (neither a
-    multiple of the 16-slot tile nor of the 256-slot split) at B 5; Sx 0 at
-    B 16 (nv 2080) and at B 1 (nv 37); Sx 256 (the extra columns fill a
-    split); group 8 (32 query heads over 4 kv heads: every column of the
-    n-tile); hd 64 with group 8 at nv 300 and 50. f32 (CUDA cores) at nv
-    1000. Returns the rows."""
+def phase1_dec_edges():
+    """Checked (untimed) edges of the decode kernels, K1-int8 on int8 rings
+    and K1 on float rings, against their plain versions at the usual
+    tolerances (each row also checks the masked stream, a second launch's
+    bits and an all-masked call). bf16 (tensor cores) at the fleet
+    decoder's shapes: nv 58 (the first step after prefill) at B 5; nv 1000
+    (neither a multiple of the 16-slot tile nor of the 256-slot split) at
+    B 5; Sx 0 at B 16 (nv 2080) and at B 1 (nv 37); Sx 256 (the extra
+    columns fill a split); group 8 (32 query heads over 4 kv heads: every
+    column of the n-tile); hd 64 with group 8 at nv 300 and 50. f32 (CUDA
+    cores) at nv 1000. Float rings only: a bf16 group of 16 (32 query heads
+    over 2 kv heads), which the plan sends to the CUDA cores. Returns the
+    rows."""
     import torch
-    k = "ring_gqa_attention_int8"
     dec = FLEET_DEC
     hd64 = dict(dec, heads=16, kv_heads=2, head_dim=64, p=320, sx=9)
     edges = [("nv=58", dec, 5, 58, torch.bfloat16), ("nv=1000", dec, 5, 1000, torch.bfloat16),
@@ -507,9 +514,14 @@ def phase1_int8_edges():
              ("hd 64 group 8 nv=50", hd64, 3, 50, torch.bfloat16),
              ("nv=1000 f32", dec, 5, 1000, torch.float32)]
     rows = []
-    for i, (label, shape, b, nv, dtype) in enumerate(edges):
-        c = _fleet_case(shape, "int8", b, nv, dtype, 900 + i, 1)
-        rows.append(_ring_row(c, dtype, f"{k} edge {label} B={b} nv={nv} {dtype}", k, False))
+    for ring, k, seed in (("int8", "ring_gqa_attention_int8", 900),
+                          ("float", "ring_gqa_attention", 950)):
+        more = [("group 16", dict(dec, kv_heads=2), 2, 500, torch.bfloat16)] \
+            if ring == "float" else []
+        for i, (label, shape, b, nv, dtype) in enumerate(edges + more):
+            c = _fleet_case(shape, ring, b, nv, dtype, seed + i, 1)
+            rows.append(_ring_row(c, dtype, f"{k} edge {label} B={b} nv={nv} {dtype}", k,
+                                  False))
     return rows
 
 
@@ -2166,7 +2178,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase0()
-    rows = (phase1() + phase1_fleet() + phase1_int8_edges() + phase1_edges() + phase1_q8()
+    rows = (phase1() + phase1_fleet() + phase1_dec_edges() + phase1_edges() + phase1_q8()
             + phase1_tools()
             + phase1_layout() + phase1_ring_layout() + phase1_tp())
     ceiling_shares(rows)

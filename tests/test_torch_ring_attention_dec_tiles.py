@@ -1,10 +1,11 @@
-"""The rounding of K1-int8's tensor-core route (csrc/ring_attention.cu,
-ring_dec_mma_kernel: bf16 q on int8 rings), emulated in plain torch,
-against the JAX package's Pallas kernel run in interpret mode; and the
-wrapper's pure-Python route rule for K1-int8 (ops/ring_attention.dec_plan)
-with its refusals. The kernel itself runs only on the card (chip_smoke.py
-holds it against the plain version there, at the same 2e-2 of max|ref|
-this file uses)."""
+"""The rounding of the decode kernels' tensor-core route
+(csrc/ring_attention.cu, ring_dec_mma_kernel: bf16 q on int8 rings, K1-int8,
+and on bf16 float rings, K1), emulated in plain torch, against the JAX
+package's Pallas kernel run in interpret mode; and the wrapper's
+pure-Python route rule for both (ops/ring_attention.dec_plan) with its
+refusals. The kernel itself runs only on the card (chip_smoke.py holds it
+against the plain version there, at the same 2e-2 of max|ref| this file
+uses)."""
 
 import math
 
@@ -89,11 +90,13 @@ def _emulate(q, qp, ring, extra):
     return _bf16(acc * (1.0 / torch.clamp(den, min=1e-30)))
 
 
-def _case(sx, seed):
-    """bf16 q, int8 rings with scales (the port's quantizer) whose slots
-    below NV hold a ring of NV positions that has wrapped (two invalid),
-    sx bf16 extra columns (the decode chunk's own: one invalid, the last
-    one past the query), stream 2's query position invalid."""
+def _case(sx, seed, ring="int8"):
+    """bf16 q, int8 rings with scales (the port's quantizer) or bf16 float
+    rings (`ring`), whose slots below NV hold a ring of NV positions that
+    has wrapped (two invalid), sx bf16 extra columns (the decode chunk's
+    own: one invalid, the last one past the query), stream 2's query
+    position invalid. Float rings come with unit scales for the emulation
+    (the Pallas kernel gets none)."""
     rng = np.random.RandomState(seed)
     last = 1000
     j = np.arange(P)
@@ -103,8 +106,13 @@ def _case(sx, seed):
     q = _bf16(torch.from_numpy((rng.randn(B, 1, H * HD) * 0.5).astype(np.float32)))
     qp = np.full((B, 1), last + max(sx - 1, 0), dtype=np.int32)
     qp[2] = SLOT_INVALID
-    (kq, ks), (vq, vs) = (quantize_kv(torch.from_numpy(
-        (rng.randn(B, P, HKV * HD) * 0.5).astype(np.float32)), HKV, HD) for _ in range(2))
+    k, v = (torch.from_numpy((rng.randn(B, P, HKV * HD) * 0.5).astype(np.float32))
+            for _ in range(2))
+    if ring == "int8":
+        (kq, ks), (vq, vs) = quantize_kv(k, HKV, HD), quantize_kv(v, HKV, HD)
+    else:
+        kq, vq = _bf16(k), _bf16(v)
+        ks = vs = torch.ones((B, HKV, P))
     extra = None
     if sx:
         xk, xv = (_bf16(torch.from_numpy((rng.randn(B, sx, HKV * HD) * 0.5).astype(np.float32)))
@@ -115,28 +123,33 @@ def _case(sx, seed):
     return q, (kq, vq), (ks, vs), sp, qp, extra
 
 
-def _pallas(q, rings, scales, sp, qp, extra):
+def _pallas(q, rings, scales, sp, qp, extra, ring="int8"):
     kw = {}
+    if ring == "int8":
+        kw = dict(k_scale=jnp.asarray(scales[0].numpy()), v_scale=jnp.asarray(scales[1].numpy()))
+        kr, vr = (jnp.asarray(r.numpy()) for r in rings)
+    else:
+        kr, vr = (jnp.asarray(r.numpy()).astype(jnp.bfloat16) for r in rings)
     if extra is not None:
-        kw = dict(extra_k=jnp.asarray(extra[0].numpy()).astype(jnp.bfloat16),
+        kw.update(extra_k=jnp.asarray(extra[0].numpy()).astype(jnp.bfloat16),
                   extra_v=jnp.asarray(extra[1].numpy()).astype(jnp.bfloat16),
                   extra_pos=jnp.asarray(extra[2]))
     out = jax_ring_gqa(
-        jnp.asarray(q.numpy()).astype(jnp.bfloat16), jnp.asarray(rings[0].numpy()),
-        jnp.asarray(rings[1].numpy()), jnp.asarray(sp), jnp.asarray(qp), window=WINDOW,
-        heads=H, kv_heads=HKV, head_dim=HD, p_limit=NV, interpret=True,
-        k_scale=jnp.asarray(scales[0].numpy()), v_scale=jnp.asarray(scales[1].numpy()), **kw)
+        jnp.asarray(q.numpy()).astype(jnp.bfloat16), kr, vr, jnp.asarray(sp), jnp.asarray(qp),
+        window=WINDOW, heads=H, kv_heads=HKV, head_dim=HD, p_limit=NV, interpret=True, **kw)
     return np.asarray(out.astype(jnp.float32))
 
 
+@pytest.mark.parametrize("ring", ["int8", "float"])
 @pytest.mark.parametrize("sx", [0, 5])
-def test_tensor_core_rounding_matches_pallas(sx):
+def test_tensor_core_rounding_matches_pallas(sx, ring):
     """The emulated tile order and rounding (per-warp running max, e * vs
     rounded to bf16, the warp merge, then the split merge) land within
     chip_smoke.py's bf16 tolerance of the Pallas kernel (which rounds
-    against the row's global max); the fully masked stream is 0."""
-    q, rings, scales, sp, qp, extra = _case(sx, seed=10 + sx)
-    ref = _pallas(q, rings, scales, sp, qp, extra)
+    against the row's global max), on int8 rings and on bf16 float rings
+    (unit scales); the fully masked stream is 0."""
+    q, rings, scales, sp, qp, extra = _case(sx, 10 + sx, ring)
+    ref = _pallas(q, rings, scales, sp, qp, extra, ring)
     out = np.zeros_like(ref)
     for b in range(B):
         for h in range(HKV):
@@ -157,31 +170,44 @@ def test_tensor_core_rounding_matches_pallas(sx):
 
 
 def test_dec_plan_routes_by_dtype_with_a_fixed_split():
-    """bf16 takes the tensor cores, f32 the CUDA cores; the split is one
-    constant, a multiple of the 4 warps' 16-slot tiles, whatever the head
-    counts (the fleet's 32/8, a TP rank's 16/4 and 4/1, the hd-64 check
-    shape 16/2) and the extra width; the plan has no B or SM count to
-    follow, so a rank's heads split the ring as the whole call does."""
+    """bf16 takes the tensor cores on float and int8 rings, f32 the CUDA
+    cores; the split is one constant, a multiple of the 4 warps' 16-slot
+    tiles, whatever the head counts (the fleet's 32/8, a TP rank's 16/4
+    and 4/1, the hd-64 check shape 16/2) and the extra width; the plan has
+    no B or SM count to follow, so a rank's heads split the ring as the
+    whole call does."""
     assert SPLIT % (TILE * WARPS) == 0
-    for heads, kv_heads, hd in ((32, 8, 128), (16, 4, 128), (4, 1, 128), (16, 2, 64)):
-        for sx in (0, 20, 256):
-            assert ra.dec_plan(torch.bfloat16, heads, kv_heads, hd, sx) == ("tensor_cores", SPLIT)
-            assert ra.dec_plan(torch.float32, heads, kv_heads, hd, sx) == ("cuda_cores", SPLIT)
-    # the CUDA cores take any group (blocks of 4 query heads)
-    assert ra.dec_plan(torch.float32, 32, 1, 128, 20) == ("cuda_cores", SPLIT)
+    for ring in ("float", "int8"):
+        for heads, kv_heads, hd in ((32, 8, 128), (16, 4, 128), (4, 1, 128), (16, 2, 64)):
+            for sx in (0, 20, 256):
+                assert ra.dec_plan(torch.bfloat16, heads, kv_heads, hd, sx, ring) == (
+                    "tensor_cores", SPLIT)
+                assert ra.dec_plan(torch.float32, heads, kv_heads, hd, sx, ring) == (
+                    "cuda_cores", SPLIT)
+        # the CUDA cores take any group (blocks of 4 query heads)
+        assert ra.dec_plan(torch.float32, 32, 1, 128, 20, ring) == ("cuda_cores", SPLIT)
+    # a bf16 group above 8 on float rings: the CUDA cores, by the plan
+    for heads, kv_heads in ((32, 2, ), (16, 1), (18, 2)):
+        assert ra.dec_plan(torch.bfloat16, heads, kv_heads, 128, 20, "float") == (
+            "cuda_cores", SPLIT)
 
 
-@pytest.mark.parametrize("dtype,heads,kv_heads,hd,sx,match", [
-    (torch.float16, 32, 8, 128, 20, "f32 or bf16"),
-    (torch.bfloat16, 24, 8, 96, 20, "head_dim 96"),
-    (torch.float32, 32, 8, 32, 20, "head_dim 32"),
-    (torch.bfloat16, 32, 8, 128, 257, "257 extra columns"),
-    (torch.bfloat16, 32, 2, 128, 20, "at most 8"),
-    (torch.bfloat16, 30, 4, 128, 20, "group 30/4"),
+@pytest.mark.parametrize("dtype,heads,kv_heads,hd,sx,ring,match", [
+    (torch.float16, 32, 8, 128, 20, "int8", "f32 or bf16"),
+    (torch.bfloat16, 24, 8, 96, 20, "int8", "head_dim 96"),
+    (torch.float32, 32, 8, 32, 20, "int8", "head_dim 32"),
+    (torch.bfloat16, 32, 8, 128, 257, "int8", "257 extra columns"),
+    (torch.bfloat16, 32, 2, 128, 20, "int8", "at most 8"),
+    (torch.bfloat16, 30, 4, 128, 20, "int8", "group 30/4"),
+    (torch.float16, 32, 8, 128, 20, "float", "f32 or bf16"),
+    (torch.bfloat16, 24, 8, 96, 20, "float", "head_dim 96"),
+    (torch.bfloat16, 32, 8, 128, 257, "float", "257 extra columns"),
+    (torch.bfloat16, 30, 4, 128, 20, "float", "group 30/4"),
+    (torch.bfloat16, 32, 8, 128, 20, "int4", "ring kind 'int4'"),
 ])
-def test_dec_plan_refusals(dtype, heads, kv_heads, hd, sx, match):
+def test_dec_plan_refusals(dtype, heads, kv_heads, hd, sx, ring, match):
     with pytest.raises(ValueError, match=match):
-        ra.dec_plan(dtype, heads, kv_heads, hd, sx)
+        ra.dec_plan(dtype, heads, kv_heads, hd, sx, ring)
 
 
 def test_k1int8_launch_consults_the_plan_before_the_card():
@@ -198,3 +224,37 @@ def test_k1int8_launch_consults_the_plan_before_the_card():
                    kernel="ring_gqa_attention_int8", ring_kind=1, window=64, heads=16,
                    kv_heads=1, head_dim=hd, k_scale=sc, v_scale=sc, extra_k=None,
                    extra_v=None, extra_pos=None, n_valid_slots=None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k1_launch_consults_the_plan_before_the_card(monkeypatch, dtype):
+    """K1's launch (float rings) asks dec_plan, with the ring kind "float",
+    before any device work: on CPU tensors the plan's answer is all that
+    happens, and a call the plan refuses (257 extra columns) raises before
+    the card."""
+    b, p, hd, sx = 1, 32, 128, 3
+    ring = torch.zeros((b, p, 2 * hd), dtype=dtype)
+    extra = torch.zeros((b, sx, 2 * hd), dtype=dtype)
+    args = (torch.zeros((b, 1, 8 * hd), dtype=dtype), ring, ring,
+            torch.zeros((b, p), dtype=torch.int32), torch.zeros((b, 1), dtype=torch.int32))
+    kw = dict(kernel="ring_gqa_attention", ring_kind=0, window=64, heads=8, kv_heads=2,
+              head_dim=hd, k_scale=None, v_scale=None, extra_k=extra, extra_v=extra,
+              extra_pos=torch.zeros((b, sx), dtype=torch.int32), n_valid_slots=None)
+    asked = []
+
+    class Planned(Exception):
+        pass
+
+    def plan(*a):
+        asked.append(a)
+        raise Planned
+
+    monkeypatch.setattr(ra, "dec_plan", plan)
+    with pytest.raises(Planned):
+        ra._launch(*args, **kw)
+    assert asked == [(dtype, 8, 2, hd, sx, "float")]
+    monkeypatch.undo()
+    wide = torch.zeros((b, 257, 2 * hd), dtype=dtype)
+    with pytest.raises(ValueError, match="257 extra columns"):
+        ra._launch(*args, **dict(kw, extra_k=wide, extra_v=wide,
+                                 extra_pos=torch.zeros((b, 257), dtype=torch.int32)))

@@ -39,14 +39,16 @@
 //
 // Two routes, chosen by the wrapper (ops/ring_attention.dec_plan):
 //
-// CUDA cores (ring_partial_kernel, ring_merge_kernel): K1 (float rings, f32
-// or bf16) and K1-int8 with f32 q (parity mode: f32 throughout). A block
+// CUDA cores (ring_partial_kernel, ring_merge_kernel): f32 q on either ring
+// (parity mode: f32 throughout), and bf16 q on float rings with more than 8
+// query heads per kv head (no configuration the port runs has one). A block
 // owns one kv head, up to 4 of its query heads and one split; K/V rows are
 // read with 16-byte vector loads (int8 codes converted in registers),
 // scores go to shared memory, a softmax pass and a PV pass follow.
 //
-// Tensor cores (ring_dec_mma_kernel, ring_dec_merge_kernel): K1-int8 with
-// bf16 q, the serving route. On the CUDA cores K1-int8 was held back by its
+// Tensor cores (ring_dec_mma_kernel<R>, ring_dec_merge_kernel): bf16 q on
+// int8 rings (K1-int8, R = int8_t) and on bf16 float rings (K1, R = bf16),
+// the serving routes. On the CUDA cores K1-int8 was held back by its
 // arithmetic and serial phases, not by bytes (int-to-float converts at a
 // quarter of the FMA rate, per-row shuffle reductions, three barrier-
 // separated passes, 38 KB of shared memory per 4-warp block: 79 us at the
@@ -58,7 +60,7 @@
 //     B (the S^T fragments transposed in registers by movmatrix). Against
 //     FlashAttention-2's shape (queries as rows, padded to 16) this halves
 //     the products, the exponentials and the registers of O and q;
-//   * the codes are never converted in shared memory or device memory: a
+//   * int8 codes are never converted in shared memory or device memory: a
 //     lane's ldmatrix word of K holds codes 4t..4t+3 of one slot (q's k
 //     order is permuted within each 16 lanes to match), its .trans word of
 //     V two lanes of two slots; both become bf16 pairs in registers, exact,
@@ -67,18 +69,23 @@
 //     and streams it by 16-byte cp.async (codes, positions, scales) through
 //     its own 2 stages, so a warp waits with __syncwarp only; shared memory
 //     is XOR-swizzled by row, so ldmatrix meets no bank conflict; 34 KB and
-//     at most 128 registers a thread put 4 blocks (16 warps) on an SM;
+//     at most 128 registers a thread put 4 blocks (16 warps) on an SM. On
+//     bf16 rings a stage is twice the bytes (8 KB a warp at hd 128); 2 of
+//     them (66 KB, 3 blocks per SM) beat 1 (34 KB, 4 blocks) at B 1 and
+//     within 2% of it at B 16;
 //   * per warp an online softmax in f32, base 2 (ex2), scores scaled per
 //     slot by 1/sqrt(hd) log2(e) ks_j, p = round_bf16(e vs_j), O in f32
 //     rescaled when a head's max moves; the warps' (m, l, O) merge once in
 //     shared memory at the end, in warp order; the splits merge one warp
 //     per (stream, query head), up to 16 splits' loads at once;
-//   * the extra columns (bf16 rows) take the same path with unit scales and
-//     q in the plain k order; a stream whose query position is invalid
-//     writes its neutral partials without reading the ring.
+//   * bf16 rows (a float ring's, and the extra columns on either ring) take
+//     the same path with unit scales and q in the plain k order: no
+//     conversion; a stream whose query position is invalid writes its
+//     neutral partials without reading the ring.
 // At the fleet shape the route is held back by its memory pipeline and its
-// fixed per-block costs, not by the tensor cores: it runs at about 0.6 of
-// the byte bound (PERF.md §6).
+// fixed per-block costs, not by the tensor cores (PERF.md §6): on NVIDIA
+// H100 80GB HBM3 at 700 W, K1-int8 runs at about 0.6 of its byte bound,
+// K1 (bf16 float rings, B 16, nv 2080) at 0.74 (51.7 us; SDPA 55.7).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -385,20 +392,25 @@ ring_merge_kernel(const float* __restrict__ o_part, const float* __restrict__ m_
 constexpr int kTile = 16;          // ring slots (or extra columns) per warp tile
 constexpr int kWarps = 4;          // warps per block; warp w takes tiles w, w + 4, ...
 constexpr int kMaxGroup = 8;       // query heads per kv head: one n-tile (_DEC_MAX_GROUP)
-constexpr int kInt8Stages = 2;     // int8 tiles in flight per warp (bf16 rows: 1)
+constexpr int kInt8Stages = 2;     // int8 ring tiles in flight per warp
+constexpr int kBf16Stages = 2;     // bf16 ring tiles in flight per warp
 constexpr int kMinBlocks = 4;      // blocks per SM the registers must allow
 constexpr int kPosInvalid = -(1 << 30);
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of one block: per warp, kInt8Stages int8 K and V tiles (or
-// half as many bf16 ones) with each stage's positions and scales; the
-// warps' (m, l) for the final merge (their O reuses the tiles' bytes).
-template <int HD>
+// Shared memory of one block on rings of element type R (int8 codes or bf16
+// rows): per warp, the stages of R's K and V tiles with each stage's
+// positions and scales; the warps' (m, l) for the final merge (their O
+// reuses the tiles' bytes). The bf16 extra columns take the same bytes in
+// fewer stages (int8 rings: one).
+template <typename R, int HD>
 struct DecSmem {
-  int8_t tiles[kWarps][kInt8Stages][2][kTile * HD];
-  int pos[kWarps][kInt8Stages][kTile];
-  float ks[kWarps][kInt8Stages][kTile];
-  float vs[kWarps][kInt8Stages][kTile];
+  static constexpr int kStages = sizeof(R) == 1 ? kInt8Stages : kBf16Stages;
+  static constexpr int kWarpBytes = kStages * 2 * kTile * HD * (int)sizeof(R);
+  alignas(16) int8_t tiles[kWarps][kWarpBytes];
+  int pos[kWarps][kStages][kTile];
+  float ks[kWarps][kStages][kTile];
+  float vs[kWarps][kStages][kTile];
   float m[kWarps][kMaxGroup];
   float l[kWarps][kMaxGroup];
 };
@@ -413,11 +425,12 @@ __device__ __forceinline__ int chunk_off(int j, int c) {
   return (j * CPR + (CPR == 4 ? c ^ ((j >> 1) & 3) : c ^ (j & 7))) * 16;
 }
 
+template <typename R>
 struct DecArgs {
   const __nv_bfloat16* q;         // [B, H * HD]
-  const int8_t* k;                // [B, P, Hkv * HD] codes
-  const int8_t* v;
-  const float* k_scale;           // [B, Hkv, P]
+  const R* k;                     // [B, P, Hkv * HD]: int8 codes or bf16 rows
+  const R* v;
+  const float* k_scale;           // [B, Hkv, P] (int8 rings; unused for bf16)
   const float* v_scale;
   const int* slot_pos;            // [B, P]
   const int* q_pos;               // [B]
@@ -432,8 +445,9 @@ struct DecArgs {
   float scale;
 };
 
-// One block's split: `count` rows of element type R (int8 codes with per-row
-// scales ksb / vsb, or the bf16 extra columns with unit scales) from kb / vb
+// One block's split: `count` rows of element type T (int8 codes with per-row
+// scales ksb / vsb, or bf16 rows, the float ring's or the extra columns,
+// with unit scales) from kb / vb
 // (kv head h's lanes, rows `stride` elements apart), positions `pos`. qb: the
 // group's G query heads. Writes the split's (m, l, O) of each query head at
 // part0 + g * n_parts.
@@ -444,27 +458,27 @@ struct DecArgs {
 // by ldmatrix.trans) and P^T as B (the S^T fragments transposed by
 // movmatrix). A lane holds slots g and g + 8 of heads 2t and 2t + 1; each
 // head's max over the tile's slots takes three shuffles.
-template <typename R, int HD>
-__device__ __forceinline__ void dec_attend(const DecArgs& a, DecSmem<HD>& sm,
+template <typename T, int HD, typename R>
+__device__ __forceinline__ void dec_attend(const DecArgs<R>& a, DecSmem<R, HD>& sm,
                                            const __nv_bfloat16* __restrict__ qb, int G,
-                                           const R* __restrict__ kb, const R* __restrict__ vb,
+                                           const T* __restrict__ kb, const T* __restrict__ vb,
                                            int stride, const int* __restrict__ pos,
                                            const float* __restrict__ ksb,
                                            const float* __restrict__ vsb, int count, int qp,
                                            int lo, size_t part0, int n_parts) {
-  constexpr bool kCodes = sizeof(R) == 1;
-  constexpr int RB = HD * (int)sizeof(R);            // bytes of a K or V row
+  constexpr bool kCodes = sizeof(T) == 1;
+  constexpr int RB = HD * (int)sizeof(T);            // bytes of a K or V row
   constexpr int CPR = RB / 16;                        // its 16-byte chunks
-  constexpr int EPC = 16 / (int)sizeof(R);            // elements per chunk
-  constexpr int kStages = kInt8Stages / (int)sizeof(R);
+  constexpr int EPC = 16 / (int)sizeof(T);            // elements per chunk
   constexpr int kStageBytes = 2 * kTile * RB;
+  constexpr int kStages = DecSmem<R, HD>::kWarpBytes / kStageBytes;
   constexpr int NK = HD / 16;                         // k-steps of S^T; m-tiles of O^T
-  static_assert(kStages >= 1, "at least one stage");
-  static_assert(kMaxGroup * HD * 4 <= kInt8Stages * 2 * kTile * HD,
+  static_assert(kStages >= 1 && kStages <= DecSmem<R, HD>::kStages, "stages fit the block's");
+  static_assert(kMaxGroup * HD * 4 <= DecSmem<R, HD>::kWarpBytes,
                 "the warps' O fits in their tiles' bytes");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  int8_t* stages = &sm.tiles[warp][0][0][0];
+  int8_t* stages = sm.tiles[warp];
   const float scale_l2 = a.scale * kLog2e;
 
   // q as B fragments (head g; zero past G). For code tiles the k order is
@@ -508,7 +522,7 @@ __device__ __forceinline__ void dec_attend(const DecArgs& a, DecSmem<HD>& sm,
       const int which = idx / (kTile * CPR);
       const int j = (idx / CPR) % kTile;
       const int c = idx % CPR;
-      const R* src = (which ? vb : kb) + (size_t)(j0 + min(j, n - 1)) * stride + c * EPC;
+      const T* src = (which ? vb : kb) + (size_t)(j0 + min(j, n - 1)) * stride + c * EPC;
       cp_async16(st + which * kTile * RB + chunk_off<RB>(j, c), src, j < n ? 16 : 0);
     }
     if (lane < kTile) {
@@ -666,7 +680,7 @@ __device__ __forceinline__ void dec_attend(const DecArgs& a, DecSmem<HD>& sm,
     l_run[c] += __shfl_xor_sync(0xffffffffu, l_run[c], 16);
   }
   __syncthreads();                         // every warp is done with its tiles
-  float* red = reinterpret_cast<float*>(&sm.tiles[0][0][0][0]);   // [kWarps][G][HD]
+  float* red = reinterpret_cast<float*>(sm.tiles[0]);   // [kWarps][G][HD]
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int hh = 2 * t + c;
@@ -706,11 +720,13 @@ __device__ __forceinline__ void dec_attend(const DecArgs& a, DecSmem<HD>& sm,
 }
 
 // One block: stream b, kv head h with all its query heads, one split of
-// kSplit ring slots (or the extra columns, the last split index).
-template <int HD>
-__global__ void __launch_bounds__(kWarps * 32, kMinBlocks) ring_dec_mma_kernel(const DecArgs a) {
+// kSplit ring slots (or the extra columns, the last split index). R: the
+// ring's element type, int8 codes (with scales) or bf16 rows.
+template <typename R, int HD>
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+ring_dec_mma_kernel(const DecArgs<R> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  DecSmem<HD>& sm = *reinterpret_cast<DecSmem<HD>*>(smem_raw);
+  DecSmem<R, HD>& sm = *reinterpret_cast<DecSmem<R, HD>*>(smem_raw);
   const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int G = a.H / a.Hkv;
   const int kv_dim = a.Hkv * HD;
@@ -743,8 +759,10 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks) ring_dec_mma_kernel(c
     const size_t row0 = (size_t)b * a.P + start;
     const size_t col = row0 * kv_dim + h * HD;
     const size_t sc0 = ((size_t)b * a.Hkv + h) * a.P + start;
-    dec_attend<int8_t, HD>(a, sm, qb, G, a.k + col, a.v + col, kv_dim, a.slot_pos + row0,
-                           a.k_scale + sc0, a.v_scale + sc0, count, qp, lo, part0, n_parts);
+    const bool codes = sizeof(R) == 1;                  // bf16 rings: unit scales
+    dec_attend<R, HD>(a, sm, qb, G, a.k + col, a.v + col, kv_dim, a.slot_pos + row0,
+                      codes ? a.k_scale + sc0 : nullptr, codes ? a.v_scale + sc0 : nullptr,
+                      count, qp, lo, part0, n_parts);
   } else {
     const size_t row0 = (size_t)b * a.Sx;
     const size_t col = row0 * kv_dim + h * HD;
@@ -807,21 +825,21 @@ ring_dec_merge_kernel(const float* __restrict__ o_part, const float* __restrict_
   for (int e = 0; e < V; ++e) out[(size_t)row * HD + lane * V + e] = __float2bfloat16(acc[e] * inv);
 }
 
-template <int HD>
-int launch_dec_mma(const DecArgs& a, __nv_bfloat16* out, int B, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(DecSmem<HD>);
+template <typename R, int HD>
+int launch_dec_mma(const DecArgs<R>& a, __nv_bfloat16* out, int B, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(DecSmem<R, HD>);
   static bool raised[64] = {};              // the shared-memory limit, per device
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 64 && !raised[dev]) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ring_dec_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        ring_dec_mma_kernel<R, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     raised[dev] = true;
   }
   const int has_extra = a.Sx > 0 ? 1 : 0;
-  ring_dec_mma_kernel<HD><<<dim3(a.n_ring_splits + has_extra, a.Hkv, B), kWarps * 32, smem,
-                            stream>>>(a);
+  ring_dec_mma_kernel<R, HD><<<dim3(a.n_ring_splits + has_extra, a.Hkv, B), kWarps * 32,
+                               smem, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int rows = B * a.H;
@@ -887,16 +905,37 @@ int launch_ring(int ring, int head_dim, const void* q, const void* k, const void
                 const void* n_valid, void* o_part, void* m_part, void* l_part,
                 void* out, int B, int P, int Sx, int H, int Hkv, int window,
                 float scale, cudaStream_t stream) {
-  if (ring == 0)
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  // bf16 q takes the tensor cores (ring_gqa_attention_mma_launch), except
+  // on float rings with more query heads per kv head than one n-tile holds
+  if (ring == 0 && (kF32 || H / Hkv > kMaxGroup))
     return launch_hd<T, T>(head_dim, q, k, v, k_scale, v_scale, slot_pos, q_pos, xk, xv,
                            x_pos, n_valid, o_part, m_part, l_part, out, B, P, Sx, H,
                            Hkv, window, scale, stream);
-  if constexpr (std::is_same<T, float>::value) {   // bf16 q: the tensor-core route
-    if (ring == 1)
-      return launch_hd<T, int8_t>(head_dim, q, k, v, k_scale, v_scale, slot_pos, q_pos,
-                                  xk, xv, x_pos, n_valid, o_part, m_part, l_part, out, B,
-                                  P, Sx, H, Hkv, window, scale, stream);
-  }
+  if (ring == 1 && kF32)
+    return launch_hd<T, int8_t>(head_dim, q, k, v, k_scale, v_scale, slot_pos, q_pos, xk, xv,
+                                x_pos, n_valid, o_part, m_part, l_part, out, B, P, Sx, H, Hkv,
+                                window, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename R>
+int launch_mma(int head_dim, const void* q, const void* k, const void* v, const void* k_scale,
+               const void* v_scale, const void* slot_pos, const void* q_pos, const void* xk,
+               const void* xv, const void* x_pos, const void* n_valid, void* o_part,
+               void* m_part, void* l_part, void* out, int B, int P, int Sx, int H, int Hkv,
+               int window, float scale, cudaStream_t stream) {
+  const DecArgs<R> a{static_cast<const __nv_bfloat16*>(q), static_cast<const R*>(k),
+                     static_cast<const R*>(v), static_cast<const float*>(k_scale),
+                     static_cast<const float*>(v_scale), static_cast<const int*>(slot_pos),
+                     static_cast<const int*>(q_pos), static_cast<const __nv_bfloat16*>(xk),
+                     static_cast<const __nv_bfloat16*>(xv), static_cast<const int*>(x_pos),
+                     static_cast<const int*>(n_valid), static_cast<float*>(o_part),
+                     static_cast<float*>(m_part), static_cast<float*>(l_part), P, Sx, H, Hkv,
+                     (P + kSplit - 1) / kSplit, window, scale};
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (head_dim == 64) return launch_dec_mma<R, 64>(a, o, B, stream);
+  if (head_dim == 128) return launch_dec_mma<R, 128>(a, o, B, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -906,8 +945,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, extra columns and out alike).
 // ring: 0 = K/V rings in q's dtype (K1); 1 = int8 rings with f32 scales
-// k_scale/v_scale [B, Hkv, P] (K1-int8; f32 q only, bf16 q takes
-// ring_gqa_attention_int8_mma_launch). Pointers are device pointers;
+// k_scale/v_scale [B, Hkv, P] (K1-int8). The CUDA cores: f32 q on either
+// ring, and bf16 q on float rings whose group H / Hkv is above 8; other bf16
+// calls take ring_gqa_attention_mma_launch. Pointers are device pointers;
 // n_valid is a device int32 scalar. The partial buffers hold
 // [B, H, ceil(P / kSplit) + 1] entries (x HD for o_part), kSplit = 256; Sx
 // must not exceed kSplit. head_dim is 64 or 128. Returns the CUDA error code
@@ -935,34 +975,30 @@ int ring_gqa_attention_launch(int dtype, int ring, int head_dim, const void* q,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K1-int8 with bf16 q on the tensor cores: arguments as
-// ring_gqa_attention_launch's with dtype 1 and ring 1 (the partial buffers
-// hold ceil(P / kSplit) + 1 splits), plus split_slots, which must be
-// kSplit (the wrapper's plan and the kernel agree on it). The
-// group H / Hkv is at most 8.
-int ring_gqa_attention_int8_mma_launch(int head_dim, const void* q, const void* k,
-                                       const void* v, const void* k_scale,
-                                       const void* v_scale, const void* slot_pos,
-                                       const void* q_pos, const void* xk, const void* xv,
-                                       const void* x_pos, const void* n_valid, void* o_part,
-                                       void* m_part, void* l_part, void* out, int B, int P,
-                                       int Sx, int H, int Hkv, int window, float scale,
-                                       int split_slots, void* stream) {
+// bf16 q on the tensor cores: ring 0 = bf16 float rings (K1; k_scale and
+// v_scale unused), 1 = int8 rings with scales (K1-int8). Other arguments as
+// ring_gqa_attention_launch's with dtype 1 (the partial buffers hold
+// ceil(P / kSplit) + 1 splits), plus split_slots, which must be kSplit (the
+// wrapper's plan and the kernel agree on it). The group H / Hkv is at most 8.
+int ring_gqa_attention_mma_launch(int ring, int head_dim, const void* q, const void* k,
+                                  const void* v, const void* k_scale, const void* v_scale,
+                                  const void* slot_pos, const void* q_pos, const void* xk,
+                                  const void* xv, const void* x_pos, const void* n_valid,
+                                  void* o_part, void* m_part, void* l_part, void* out, int B,
+                                  int P, int Sx, int H, int Hkv, int window, float scale,
+                                  int split_slots, void* stream) {
   if (split_slots != kSplit || Sx < 0 || Sx > kSplit || Hkv <= 0 || H % Hkv != 0 ||
       H / Hkv > kMaxGroup || B <= 0 || P <= 0 || B > 65535 || Hkv > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const DecArgs a{static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-                  static_cast<const int8_t*>(v), static_cast<const float*>(k_scale),
-                  static_cast<const float*>(v_scale), static_cast<const int*>(slot_pos),
-                  static_cast<const int*>(q_pos), static_cast<const __nv_bfloat16*>(xk),
-                  static_cast<const __nv_bfloat16*>(xv), static_cast<const int*>(x_pos),
-                  static_cast<const int*>(n_valid), static_cast<float*>(o_part),
-                  static_cast<float*>(m_part), static_cast<float*>(l_part), P, Sx, H, Hkv,
-                  (P + kSplit - 1) / kSplit, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* o = static_cast<__nv_bfloat16*>(out);
-  if (head_dim == 64) return launch_dec_mma<64>(a, o, B, s);
-  if (head_dim == 128) return launch_dec_mma<128>(a, o, B, s);
+  if (ring == 0)
+    return launch_mma<__nv_bfloat16>(head_dim, q, k, v, k_scale, v_scale, slot_pos, q_pos,
+                                     xk, xv, x_pos, n_valid, o_part, m_part, l_part, out, B,
+                                     P, Sx, H, Hkv, window, scale, s);
+  if (ring == 1)
+    return launch_mma<int8_t>(head_dim, q, k, v, k_scale, v_scale, slot_pos, q_pos, xk, xv,
+                              x_pos, n_valid, o_part, m_part, l_part, out, B, P, Sx, H, Hkv,
+                              window, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

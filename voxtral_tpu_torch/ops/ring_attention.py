@@ -16,11 +16,13 @@ dispatcher the decoder and the incremental encoder call (counterpart of
   * "ring_gqa_attention" (K1, `csrc/ring_attention.cu`): S = 1, rings in
     q's float dtype;
   * "ring_gqa_attention_int8" (K1-int8, same source): S = 1, int8 rings
-    with k_scale/v_scale [B, Hkv, P]. Its route is a dispatch on q's dtype
-    (`dec_plan`): bf16 runs on the tensor cores (mma.sync, 16-slot tiles
-    by cp.async, codes converted in registers), f32 on the CUDA cores
-    (f32 throughout, for parity); both split the ring into fixed
-    256-slot splits and merge them in a second kernel;
+    with k_scale/v_scale [B, Hkv, P].
+  Their route is a dispatch on q's dtype and the ring kind (`dec_plan`):
+  bf16 runs on the tensor cores (mma.sync, 16-slot tiles by cp.async;
+  int8 codes converted in registers, bf16 rows taken as they are), f32 on
+  the CUDA cores (f32 throughout, for parity), and so do bf16 calls on
+  float rings with more than 8 query heads per kv head; every route splits
+  the ring into fixed 256-slot splits and merges them in a second kernel;
   * "ring_gqa_attention_enc" (K1-enc, `csrc/ring_attention_enc.cu`): S > 1,
     or int4-packed rings (any S); float, int8 or int4 rings. Its route is a
     dispatch on q's dtype (`enc_plan`): bf16 runs on the tensor cores
@@ -67,8 +69,8 @@ _HEAD_DIMS = {"ring_gqa_attention": (64, 128), "ring_gqa_attention_int8": (64, 1
 # routes. It sizes the partial buffers, and the decode kernel's extra
 # columns (one split of their own) must fit in it.
 _SPLIT_SLOTS = 256
-# = kMaxGroup in csrc/ring_attention.cu: query heads per kv head on K1-int8's
-# tensor-core route (one 8-column n-tile)
+# = kMaxGroup in csrc/ring_attention.cu: query heads per kv head on the
+# decode kernels' tensor-core route (one 8-column n-tile)
 _DEC_MAX_GROUP = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # = kTile, kMaxTiles in csrc/ring_attention_enc.cu: ring slots (or extra
@@ -248,23 +250,34 @@ def enc_plan(dtype, b: int, kv_heads: int, p: int, sx: int, sms: int) -> tuple[s
     return "tensor_cores", -(-tiles // per)
 
 
-def dec_plan(dtype, heads: int, kv_heads: int, head_dim: int, sx: int) -> tuple[str, int]:
-    """(route, split slots) of a K1-int8 call: bf16 q takes the tensor
-    cores, f32 q the CUDA cores, both `_SPLIT_SLOTS` slots a split. The
-    split never follows B, the kv heads or the card's SM count (none of
-    them is an input), so a tensor-parallel rank's heads compute the whole
-    call's bits. Refuses a dtype, head_dim, extra width or (tensor cores)
-    group the kernels are not built for."""
+def dec_plan(dtype, heads: int, kv_heads: int, head_dim: int, sx: int,
+             ring: str) -> tuple[str, int]:
+    """(route, split slots) of a decode call (K1 on `ring` "float", K1-int8
+    on "int8"): bf16 q takes the tensor cores, f32 q the CUDA cores, both
+    `_SPLIT_SLOTS` slots a split. A bf16 group above 8 query heads per kv
+    head (one n-tile) takes the CUDA cores on float rings, by this choice
+    and not as a fallback (no configuration the port runs has one: 4B is
+    32/8), and is refused on int8 rings. The split never follows B, the kv
+    heads or the card's SM count (none of them is an input), so a
+    tensor-parallel rank's heads compute the whole call's bits. Refuses a
+    ring kind, dtype, head_dim or extra width the kernels are not built
+    for."""
+    if ring not in ("float", "int8"):
+        raise ValueError(f"ring kind {ring!r}: the decode kernels take 'float' or 'int8'")
     if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"K1-int8 takes f32 or bf16 q, got {dtype}")
+        raise ValueError(f"the decode kernels take f32 or bf16 q, got {dtype}")
     if head_dim not in _HEAD_DIMS["ring_gqa_attention_int8"]:
-        raise ValueError(f"head_dim {head_dim}: K1-int8 is built for "
+        raise ValueError(f"head_dim {head_dim}: the decode kernels are built for "
                          f"{_HEAD_DIMS['ring_gqa_attention_int8']}")
     if sx > _SPLIT_SLOTS:
         raise ValueError(f"{sx} extra columns > {_SPLIT_SLOTS}")
     if dtype == torch.float32:
         return "cuda_cores", _SPLIT_SLOTS
-    if heads % kv_heads or heads // kv_heads > _DEC_MAX_GROUP:
+    if heads % kv_heads:
+        raise ValueError(f"group {heads}/{kv_heads} is not whole")
+    if heads // kv_heads > _DEC_MAX_GROUP:
+        if ring == "float":
+            return "cuda_cores", _SPLIT_SLOTS
         raise ValueError(f"group {heads}/{kv_heads}: K1-int8's tensor cores take "
                          f"at most {_DEC_MAX_GROUP} query heads per kv head")
     return "tensor_cores", _SPLIT_SLOTS
@@ -275,8 +288,8 @@ _VP, _CI, _CF = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ENTRIES = {
     "decode": ("ring_attention.cu", "ring_gqa_attention_launch",
                [_CI] * 3 + [_VP] * 15 + [_CI] * 6 + [_CF, _VP]),
-    "decode_mma": ("ring_attention.cu", "ring_gqa_attention_int8_mma_launch",
-                   [_CI] + [_VP] * 15 + [_CI] * 6 + [_CF, _CI, _VP]),
+    "decode_mma": ("ring_attention.cu", "ring_gqa_attention_mma_launch",
+                   [_CI] * 2 + [_VP] * 15 + [_CI] * 6 + [_CF, _CI, _VP]),
     "enc": ("ring_attention_enc.cu", "ring_gqa_attention_enc_launch",
             [_CI] * 3 + [_VP] * 15 + [_CI] * 7 + [_CF, _CI, _VP]),
 }
@@ -307,8 +320,9 @@ def _launch(q, k_ring, v_ring, slot_pos, q_pos, *, kernel, ring_kind, window,
     p = k_ring.shape[1]
     sx = 0 if extra_k is None else extra_k.shape[1]
     route, split = "cuda_cores", _SPLIT_SLOTS
-    if kernel == "ring_gqa_attention_int8":
-        route, split = dec_plan(q.dtype, heads, kv_heads, head_dim, sx)
+    if kernel != "ring_gqa_attention_enc":
+        route, split = dec_plan(q.dtype, heads, kv_heads, head_dim, sx,
+                                "int8" if ring_kind == 1 else "float")
     i32 = torch.int32
     sp = slot_pos.to(i32).contiguous()
     qp = torch.as_tensor(q_pos, device=dev).reshape(b, s).to(i32).contiguous()
@@ -362,7 +376,7 @@ def _launch(q, k_ring, v_ring, slot_pos, q_pos, *, kernel, ring_kind, window,
                 l_part.data_ptr(), out.data_ptr())
         dims = (b, p, sx, heads, kv_heads, window, scale)
         if route == "tensor_cores":
-            err = _lib("decode_mma")(head_dim, *ptrs, *dims, split, stream)
+            err = _lib("decode_mma")(ring_kind, head_dim, *ptrs, *dims, split, stream)
         else:
             err = _lib("decode")(_DTYPE_CODES[q.dtype], ring_kind, head_dim, *ptrs,
                                  *dims, stream)

@@ -85,7 +85,7 @@
 // At the fleet shape the route is held back by its memory pipeline and its
 // fixed per-block costs, not by the tensor cores (PERF.md §6): on NVIDIA
 // H100 80GB HBM3 at 700 W, K1-int8 runs at about 0.6 of its byte bound,
-// K1 (bf16 float rings, B 16, nv 2080) at 0.74 (51.7 us; SDPA 55.7).
+// K1 (bf16 float rings, B 16, nv 2080) at 0.73 (52.4 us; SDPA 55.7).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -25,7 +25,6 @@ import functools
 
 import torch
 
-
 BF16_MATMUL_MAX_ROWS = 64                 # = kMaxM in the source
 _COLS = 128                               # = kCols: columns per block
 _STAGE_ROWS = 64                          # = kStageRows: K rows per stage

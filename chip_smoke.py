@@ -15,10 +15,14 @@ Phases (any failure raises and the script exits non-zero):
      (encoder regime: float, int8 and int4 rings) at the fleet encoder's
      shapes. Every case has a wrapped slot table and a fully masked query
      row, and an all-masked call must return zeros. K2 (W8A16 GEMV) at the
-     decoder's five Q8 matrix shapes, M = 1 and 16, f32 and bf16 (and the
-     prefill's M = 38, the largest M = 64); K3 (fused tied logits + argmax)
-     in argmax and logits mode on int8 and bf16 tables at B = 1 and 16, an
-     f32 table, f32 queries, and constructed ties (the first index wins).
+     decoder's five Q8 matrix shapes, M = 1, 16, 32, 38 (the prefill) and
+     64, f32 and bf16 (bf16 timed at M 1 and 16, and at M 32 and 38 for
+     w1/w3), at their slices on 2 tensor-parallel ranks and at ragged K
+     and N, each checked for two bit-identical launches, with
+     torch._weight_int8pack_mm as its yardstick; K3 (fused tied logits +
+     argmax) in argmax and logits mode on int8 and bf16 tables at B = 1
+     and 16, an f32 table, f32 queries, and constructed ties (the first
+     index wins).
      The new code's edges, checked: K1-int8 and K1 (float rings) at nv =
      58 and 1000, Sx = 0 and 256, group 8, hd 64 with group 8, f32, and K1
      with a bf16 group of 16 (the CUDA cores, by the plan); K1-enc at S =
@@ -570,16 +574,41 @@ K2_SHAPES = {"wq": (3072, 4096), "wk/wv": (3072, 1024), "wo": (4096, 3072),
 VOCAB, DIM = 131072, 3072
 
 
+# Yardstick rows whose scales are rounded to bf16 (torch._weight_int8pack_mm)
+# may differ from the f32-scaled plain version by the scales' rounding too:
+# up to 2^-9 of max|y| beyond the bf16 tolerance.
+BF16_SCALE_ROUNDING = 2.0 ** -9
+
+
+def _bf16_tol(mx):
+    """K2's bf16 tolerance for outputs of largest magnitude mx: 1e-5 of mx
+    (another summation order) plus one bf16 ulp of mx (the order can move a
+    value across a rounding boundary)."""
+    return 1e-5 * mx + 2.0 ** (np.floor(np.log2(mx)) - 7)
+
+
+def _int8pack_check(got, ref, what):
+    """torch._weight_int8pack_mm's result against the plain version, once:
+    the bf16 tolerance plus the rounding of its bf16 scales."""
+    mx = ref.float().abs().max().item()
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = _bf16_tol(mx) + BF16_SCALE_ROUNDING * mx
+    check(err <= tol, f"{what}: torch._weight_int8pack_mm err {err} > tol {tol}")
+
+
 def _k2_row(name, k, n, m, dtype, seed, timed):
     """K2 (w8a16_gemv) against q8_matmul_plain on x [m, k] and Q8 weights
     [k, n] quantized from N(0, 0.02). Tolerance: f32 1e-5 of max|y| (same
-    products, another summation order); bf16 one bf16 ulp of max|y| (the
-    order can move a value across a rounding boundary) plus the same
-    1e-5 term. If `timed`: the kernel's, the plain version's and the
-    yardstick's CUDA-graph times over weight copies that exceed the L2, and
+    products, another summation order); bf16 `_bf16_tol`. Two launches must
+    be bit-identical. If `timed`: the kernel's, the plain version's and two
+    yardsticks' CUDA-graph times over weight copies that exceed the L2, and
     the bound (weight codes, scales, x and y once; 2 m k n operations at
-    the rate of x's dtype). The yardstick is torch.mm of the same x with a
-    bf16 weight of the same shape: twice the weight bytes."""
+    the rate of x's dtype). The yardsticks: torch._weight_int8pack_mm, the
+    same function on the codes transposed to a contiguous [n, k] and the
+    scales cast to x's dtype (both made outside the timed region; its
+    result held once against the plain version), as `library_ms`; and
+    torch.mm of the same x with a bf16 weight of the same shape (twice the
+    weight bytes), as `mm_bf16_ms`."""
     import torch
     from voxtral_tpu_torch.ops import q8_matmul as qm
     from voxtral_tpu_torch.quant import quantize_torch
@@ -598,9 +627,7 @@ def _k2_row(name, k, n, m, dtype, seed, timed):
     check(torch.equal(y, y2), f"K2 {name}: two launches differ")
     mx = ref.float().abs().max().item()
     err = (y.float() - ref.float()).abs().max().item()
-    tol = 1e-5 * mx
-    if dtype == torch.bfloat16:
-        tol += 2.0 ** (np.floor(np.log2(mx)) - 7)
+    tol = _bf16_tol(mx) if dtype == torch.bfloat16 else 1e-5 * mx
     what = f"K2 {name} (K {k}, N {n}) M={m} {dtype}"
     check(err <= tol, f"{what}: err {err} > tol {tol}")
     row = dict(kernel="w8a16_gemv", matrix=name, k=k, n=n, b=m, dtype=str(dtype),
@@ -609,15 +636,22 @@ def _k2_row(name, k, n, m, dtype, seed, timed):
         elt = dtype.itemsize
         bytes_ms, ops_ms, bound_ms, bound_by = _bound(
             k * n + 4 * n + m * k * elt + m * n * elt, 2 * m * k * n, dtype)
-        wb = [torch.randn(k, n, generator=g, device="cuda").to(dtype) for _ in range(copies)]
+        qt = [w.q.t().contiguous() for w in ws]
+        st = [w.s.to(dtype) for w in ws]
+        _int8pack_check(torch._weight_int8pack_mm(x, qt[0], st[0]), ref, what)
         row.update(
             ms=cuda_ms(lambda i: qm.w8a16_gemv(x, ws[i % copies].q, ws[i % copies].s), 50),
             plain_ms=cuda_ms(lambda i: qm.q8_matmul_plain(x, ws[i % copies].q,
                                                           ws[i % copies].s), 5),
-            library_ms=cuda_ms(lambda i: torch.mm(x, wb[i % copies]), 50),
-            library="torch.mm, bf16 weight", bytes_ms=bytes_ms, ops_ms=ops_ms,
-            bound_ms=bound_ms, bound_by=bound_by)
+            library_ms=cuda_ms(lambda i: torch._weight_int8pack_mm(
+                x, qt[i % copies], st[i % copies]), 50),
+            library="torch._weight_int8pack_mm ([n, k] codes, scales in x's dtype)")
+        del qt, st
+        wb = [torch.randn(k, n, generator=g, device="cuda").to(dtype) for _ in range(copies)]
+        row.update(mm_bf16_ms=cuda_ms(lambda i: torch.mm(x, wb[i % copies]), 50),
+                   bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
         del wb
+        _shares(row)
     log(f"[1] {what}: {json.dumps(row)}")
     return row
 
@@ -630,10 +664,11 @@ def _k3_row(table_kind, b, mode, seed, timed, v=VOCAB, h_dtype=None, tie=False):
     version's, except a stream whose plain top-two gap is <= 1e-5 of
     max|logit|. `tie`: rows 5000 and 90000 repeat row 300, which every h is
     built to prefer: the first index must win. If `timed`: CUDA-graph times
-    of the kernel, the plain version and (bf16 table) the yardstick
-    torch.mm(h, T.t(), out_dtype=f32) [+ torch.argmax: two calls], and the
-    bound (table, scales, h and the output once; 2 b v d operations at the
-    rate of h's dtype)."""
+    of the kernel, the plain version and the yardstick (bf16 table:
+    torch.mm(h, T.t(), out_dtype=f32); int8 table and bf16 h:
+    torch._weight_int8pack_mm on the table as it is, with bf16 scales)
+    [+ torch.argmax: two calls], and the bound (table, scales, h and the
+    output once; 2 b v d operations at the rate of h's dtype)."""
     import torch
     from voxtral_tpu_torch.ops import logits_argmax as la
     from voxtral_tpu_torch.quant import quantize_torch
@@ -690,19 +725,32 @@ def _k3_row(table_kind, b, mode, seed, timed, v=VOCAB, h_dtype=None, tie=False):
         nbytes = v * DIM * elt + (4 * v if scales is not None else 0) + b * DIM * h_elt \
             + (4 * b * v if logits else 4 * b)
         bytes_ms, ops_ms, bound_ms, bound_by = _bound(nbytes, 2 * b * v * DIM, h_dtype)
-        lib = None
+        lib, lib_name = None, None
         if table_kind == "bf16":
+            lib_name = "torch.mm(out_dtype=f32)"
             if logits:
                 lib = cuda_ms(lambda i: torch.mm(h, table.t(), out_dtype=torch.float32), 20)
             else:
                 lib = cuda_ms(lambda i: torch.argmax(
                     torch.mm(h, table.t(), out_dtype=torch.float32), dim=-1), 20)
+        elif table_kind == "int8" and h_dtype == torch.bfloat16:
+            # the same logits from the table as it is, with its scales in h's
+            # dtype (cast outside the timed region); held once against the
+            # plain logits
+            lib_name = "torch._weight_int8pack_mm (bf16 scales, bf16 logits)"
+            sb = scales.to(h_dtype)
+            _int8pack_check(torch._weight_int8pack_mm(h, table, sb), ref_logits, what)
+            if logits:
+                lib = cuda_ms(lambda i: torch._weight_int8pack_mm(h, table, sb), 20)
+            else:
+                lib = cuda_ms(lambda i: torch.argmax(
+                    torch._weight_int8pack_mm(h, table, sb), dim=-1), 20)
         plain = la.tied_logits_plain if logits else la.logits_argmax_plain
         row.update(
             ms=cuda_ms(lambda i: la.fused_logits_argmax(h, table, scales, logits=logits), 20),
             plain_ms=cuda_ms(lambda i: plain(h, table, scales), 3),
             library_ms=lib, library=None if lib is None else
-            "torch.mm(out_dtype=f32)" + ("" if logits else " + torch.argmax (two calls)"),
+            lib_name + ("" if logits else " + torch.argmax (two calls)"),
             bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
         _shares(row)
     log(f"[1] {what}: {json.dumps(row)}")
@@ -710,20 +758,33 @@ def _k3_row(table_kind, b, mode, seed, timed, v=VOCAB, h_dtype=None, tie=False):
 
 
 def phase1_q8():
-    """K2 at the decoder's five Q8 shapes (M = 1 offline, 16 fleet; f32 and
-    bf16, bf16 timed; M = 38, the prefill's rows, and 64, the kernel's
-    largest, checked), and K3 in both modes on int8 and bf16 tables at B = 1
-    and 16 (timed), an f32 table at a small V and a constructed tie
+    """K2 at the decoder's five Q8 shapes, f32 and bf16, M = 1 (offline),
+    16 (fleet), 32 (phase 6's stack), 38 (the prefill) and 64 (the kernel's
+    largest): bf16 at M 1 and 16 timed, and at M 32 and 38 for w1/w3;
+    checked only at the shapes' slices on 2 tensor-parallel ranks and at
+    edges (K no multiple of the 64-row stage, N no multiple of the
+    128-column tile, M 1, 17, 64). K3 in both modes on int8 and bf16 tables
+    at B = 1 and 16 (timed), an f32 table at a small V and a constructed tie
     (checked). Returns the rows."""
     import torch
     rows, seed = [], 500
     for name, (k, n) in K2_SHAPES.items():
-        for m in (1, 16):
+        for m in (1, 16, 32, 38, 64):
             for dtype in (torch.float32, torch.bfloat16):
                 seed += 1
-                rows.append(_k2_row(name, k, n, m, dtype, seed, dtype == torch.bfloat16))
-    rows.append(_k2_row("wq", *K2_SHAPES["wq"], 38, torch.bfloat16, 590, False))
-    rows.append(_k2_row("w2", *K2_SHAPES["w2"], 64, torch.float32, 591, False))
+                timed = dtype == torch.bfloat16 and (m <= 16 or name == "w1/w3" and m < 64)
+                rows.append(_k2_row(name, k, n, m, dtype, seed, timed))
+    for name, (k, n) in K2_SHAPES.items():       # a rank's slice (model 2)
+        k, n = (k // 2, n) if name in ("wo", "w2") else (k, n // 2)
+        for m, dtype in ((16, torch.bfloat16), (8, torch.float32)):
+            seed += 1
+            rows.append(_k2_row(f"{name} tp2", k, n, m, dtype, seed, False))
+    for name, k, n in (("ragged K", 1536 + 72, 3072), ("ragged N", 3072, 1024 - 16)):
+        for m in (1, 17, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                seed += 1
+                rows.append(_k2_row(name, k, n, m, dtype, seed, False))
+    seed = 520
     for table in ("int8", "bf16"):
         for b in (1, 16):
             for mode in ("argmax", "logits"):

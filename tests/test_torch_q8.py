@@ -30,6 +30,7 @@ from voxtral_tpu_torch.ops.linear import embed_logits, embed_lookup, linear
 from voxtral_tpu_torch.quant import (
     Quantized, dequantize, quantize_np, quantize_params, quantize_torch,
 )
+from voxtral_tpu_torch.tools import profile_k2_variants as k2v
 from voxtral_tpu_torch.weights import from_numpy_params, load_params
 
 torch.set_num_threads(2)
@@ -255,17 +256,274 @@ def test_q8_pipeline_tokens_match_jax():
     assert qm.LAUNCHES == before                 # the CPU never launches K2
 
 
-@pytest.mark.parametrize("k,n", [(3072, 4096), (3072, 1024), (4096, 3072),
-                                 (3072, 9216), (9216, 3072), (5120, 3072), (40, 8)])
-@pytest.mark.parametrize("m", [1, 16, 38, 64])
-def test_split_k_covers_k(k, n, m):
-    """K2's split of K: slices of whole 16-row steps, at most 512 rows, none
-    empty, together covering K; at the decode shapes the grid fills the
-    card."""
-    k_slice, splits = qm.split_k(m, k, n, 132)
-    assert k_slice % 16 == 0 and k_slice <= 512 and splits >= 1
-    assert k_slice * splits >= k and k_slice * (splits - 1) < k
-    if k >= 1024:
-        blocks = -(-n // 32) * -(-m // 16) * splits
-        assert blocks >= 2 * 132
+# The decoder's five Q8 shapes (K, N), their slices on 2 tensor-parallel
+# ranks (column slices of wq, wk/wv, w1/w3; row slices of wo, w2) and the
+# adapter's first matrix.
+PLAN_SHAPES = [(3072, 4096), (3072, 1024), (4096, 3072), (3072, 9216), (9216, 3072),
+               (3072, 2048), (3072, 512), (2048, 3072), (3072, 4608), (4608, 3072),
+               (5120, 3072)]
+
+
+def _resident(per_sm):
+    """Resident blocks for clusters of 1..8: `per_sm` blocks on each of 132
+    SMs, fewer for clusters that do not pack the card's GPCs."""
+    return [max(c, per_sm * 132 - (c - 1) * 8) for c in range(1, 9)]
+
+
+@pytest.mark.parametrize("k,n", PLAN_SHAPES)
+@pytest.mark.parametrize("m", [1, 16, 32, 38, 64])
+@pytest.mark.parametrize("per_sm", [1, 2, 3, 8])
+def test_k2_plan_covers_k_in_one_wave(k, n, m, per_sm):
+    """K2's plan: the splits cover K, none is empty, each slice is whole
+    64-row stages, a column tile's splits fit one cluster (at most 8), the
+    grid (a block per column tile and split) fits one wave of the resident
+    blocks, and every 16-row tile of M is in the same block: M enters only
+    through `resident`."""
+    resident = _resident(per_sm)
+    cols, stages, k_slice, splits = qm.k2_plan(m, k, n, resident)
+    assert cols == 128 and stages >= 2
+    assert k_slice % 64 == 0 and 1 <= splits <= 8
+    assert k_slice * (splits - 1) < k <= k_slice * splits        # covered, none empty
+    tiles = -(-n // cols)
+    assert splits == 1 or tiles * splits <= resident[splits - 1]  # one wave of blocks
+    assert all(qm.k2_plan(mm, k, n, resident) == (cols, stages, k_slice, splits)
+               for mm in (1, 17, 64))
     assert qm.Q8_GEMV_MAX_ROWS == 64
+
+
+def test_k2_entry_refuses_before_the_card(monkeypatch):
+    """The entry refuses what the kernel cannot take (M outside 1..64, K not
+    a multiple of 8, N not a multiple of 16, x, q or s not 16-byte aligned
+    or not contiguous, other dtypes) with ValueError before it asks for the
+    card: the library and the occupancy query are stubbed to fail."""
+    def no_card(*_a, **_k):
+        raise AssertionError("reached the card")
+
+    monkeypatch.setattr(qm, "_lib", no_card)
+    monkeypatch.setattr(qm, "_resident", no_card)
+    bf = torch.bfloat16
+
+    def args(m=4, k=64, n=128, dtype=bf):
+        return (torch.zeros((m, k), dtype=dtype), torch.zeros((k, n), dtype=torch.int8),
+                torch.ones(n, dtype=torch.float32))
+
+    def shifted(t, by):
+        flat = torch.zeros(t.numel() + by, dtype=t.dtype)[by:]
+        return flat.view(t.shape)
+
+    x, q, s = args()
+    cases = [
+        (args(m=65), "1..64"),
+        ((torch.zeros((0, 64), dtype=bf), q, s), "1..64"),
+        (args(k=60), "multiple of 8"),
+        (args(n=120), "of 16"),
+        ((shifted(x, 4), q, s), "aligned"),
+        ((x, shifted(q, 8), s), "aligned"),
+        ((x, q, shifted(s, 2)), "aligned"),
+        ((torch.zeros((64, 4), dtype=bf).t(), q, s), "contiguous"),
+        (args(dtype=torch.float16), "f32 or bf16"),
+        ((x, q.to(torch.int16), s), "int8"),
+        ((x, q, s.to(bf)), "f32"),
+        ((x, q, torch.ones(64)), "f32"),
+        ((x, q, s), "CUDA"),                     # takeable, but not on a card
+    ]
+    for (xx, qq, ss), match in cases:
+        with pytest.raises(ValueError, match=match):
+            qm.w8a16_gemv(xx, qq, ss)
+    with pytest.raises(ValueError, match="unsupported device"):
+        qm.q8_matmul(x.to("meta"), q.to("meta"), s.to("meta"))
+    with pytest.raises(ValueError, match="1..64"):
+        qm.k2_plan(65, 64, 128, _resident(2))
+
+
+def _k2_emulate(x, q, s, resident):
+    """K2's bf16 route in plain torch: x [m, k] (bf16 values), codes q [k,
+    n], scales s [n]. Each split of the plan sums its slice's 16-row k-steps
+    in order into an f32 accumulator (one mma per k-step), the splits'
+    partials are added in split order, the sum is scaled, then rounded once.
+    Returns (f32 before rounding, bf16)."""
+    m, k = x.shape
+    _, _, k_slice, splits = qm.k2_plan(m, k, q.shape[1], resident)
+    xf, qf = x.float(), q.float()
+    parts = []
+    for sp in range(splits):
+        acc = torch.zeros((m, q.shape[1]))
+        for r0 in range(sp * k_slice, min(k, (sp + 1) * k_slice), 16):
+            acc = acc + xf[:, r0:r0 + 16] @ qf[r0:r0 + 16]
+        parts.append(acc)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    y = total * s
+    return y, y.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [1, 16, 38])
+@pytest.mark.parametrize("per_sm", [1, 8])
+def test_k2_summation_order_matches_jax(m, per_sm):
+    """The emulated bf16 route (k-steps, splits merged in order, the scale
+    after the sum, one rounding) against the JAX package's Q8 linear, at a
+    K that is no multiple of the 64-row stage and an N that is no multiple
+    of the 128-column tile, with 1 or 7 splits: f32 within 1e-5 of max|y|
+    (another summation order); bf16 within one bf16 ulp of max|y|."""
+    k, n = 392, 272
+    wt, wj = _q8_pair(20 + m, k, n)
+    rng = np.random.RandomState(30 + m)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).to(torch.bfloat16)
+    resident = [3] * 8 if per_sm == 1 else _resident(8)
+    splits = qm.k2_plan(m, k, n, resident)[3]
+    assert splits == (1 if per_sm == 1 else 7)
+    y32, y16 = _k2_emulate(x, wt.q, wt.s, resident)
+    xj32 = jnp.asarray(x.float().numpy())
+    want32 = np.asarray(jax.jit(jl.linear)(xj32, wj))
+    mx = np.abs(want32).max()
+    np.testing.assert_allclose(y32.numpy(), want32, rtol=0, atol=1e-5 * mx)
+    want16 = np.asarray(jax.jit(jl.linear)(xj32.astype(jnp.bfloat16), wj).astype(jnp.float32))
+    np.testing.assert_allclose(y16.float().numpy(), want16, rtol=0,
+                               atol=2.0 ** (np.floor(np.log2(mx)) - 7))
+
+
+# --- K2's fragment mapping, emulated lane by lane (csrc/w8a16.cu) ---------
+
+_STAGE, _COLS, _XROW, _QROW = 64, 128, 128, 128      # kStageRows, kCols, kXRow, kQRow
+
+
+def _q_off(j, c):
+    return (j * (_QROW // 16) + (c ^ (j & 6))) * 16
+
+
+def _x_off(j, c):
+    return (j * (_XROW // 16) + (c ^ (j & 7))) * 16
+
+
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm: byte i of the result is byte (sel >> 4i) & 7 of
+    the 8 bytes of (x, y)."""
+    b = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(b[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _bf16_pair(bits):
+    """A 32-bit word as two bf16 values (low half first)."""
+    return [float(np.array([((bits >> sh) & 0xFFFF) << 16], np.uint32).view(np.float32)[0])
+            for sh in (0, 16)]
+
+
+def _int8x4_to_bf16_pairs(w):
+    """mma_common::int8x4_to_bf16_pairs<0, 1, 2, 3>: two words of bf16
+    pairs, each (128 + (code & 127)) - (128 + (code & 128)) per half."""
+    mag, sgn = w & 0x7F7F7F7F, w & 0x80808080
+    out = []
+    for sel in (0x4140, 0x4342):
+        a = _bf16_pair(_byte_perm(mag, 0x43434343, sel))
+        b = _bf16_pair(_byte_perm(sgn, 0x43434343, sel))
+        out.append([a[0] - b[0], a[1] - b[1]])          # exact in bf16
+    return out
+
+
+def test_k2_fragment_mapping_emulated():
+    """One 64-row stage of one block, as the kernel's threads see it: the
+    cp.async copies write the swizzled code and x tiles (x rows past M and
+    code columns past N zero-filled), each lane of each warp loads its four
+    code words, interleaves and converts them, ldmatrix hands out the A
+    fragments, mma.sync m16n8k16 adds them up (exactly, in f64), and the
+    epilogue's partial tile must equal x @ q over the stage, column for
+    column: every index of the mapping is checked here, the rounding
+    elsewhere."""
+    rng = np.random.RandomState(40)
+    m, n_valid, mt_tiles = 20, 112, 2                   # 2 m-tiles; 16 columns past N
+    codes = rng.randint(-127, 128, size=(_STAGE, _COLS)).astype(np.int8)
+    codes[:, n_valid:] = 0
+    x = rng.randint(-64, 64, size=(16 * mt_tiles, _STAGE)).astype(np.float64) / 8
+    x[m:] = 0.0
+    qmem = np.zeros(_STAGE * _QROW, np.uint8)
+    xmem = np.zeros(16 * mt_tiles * _XROW // 2, np.float64)   # bf16 elements as values
+    for tid in range(128):                               # the copies of `issue`
+        qj, qc = tid // 8, tid % 8
+        for e in range(_STAGE // 16):            # passes of 16 rows
+            dst = _q_off(qj, qc) + e * 16 * _QROW
+            row = qj + 16 * e
+            if 16 * qc < n_valid:
+                qmem[dst:dst + 16] = codes[row, 16 * qc:16 * qc + 16].view(np.uint8)
+        xm, xc = tid // (_XROW // 16), tid % (_XROW // 16)
+        passes = 128 // (_XROW // 16)
+        for e in range(16 * mt_tiles // passes):
+            dst = _x_off(xm, xc) + e * passes * _XROW
+            row = xm + passes * e
+            xmem[dst // 2:dst // 2 + 8] = x[row, 8 * xc:8 * xc + 8] if row < m else 0.0
+    red = np.zeros((16 * mt_tiles, _COLS))
+    for warp in range(4):
+        acc = np.zeros((mt_tiles, 4, 32, 4))            # [mt][n-tile][lane][c0..c3]
+        for kk in range(_STAGE // 16):
+            b0, b1 = np.zeros((4, 32, 2)), np.zeros((4, 32, 2))
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                words = []
+                for r in range(4):
+                    j = 2 * t + (r & 1) + 8 * (r >> 1)
+                    off = _q_off(j, 2 * warp + (g >> 2)) + 4 * (g & 3) + kk * 16 * _QROW
+                    words.append(int(qmem[off:off + 4].view(np.uint32)[0]))
+                lo0, hi0 = (_int8x4_to_bf16_pairs(_byte_perm(words[0], words[1], sel))
+                            for sel in (0x5140, 0x7362))
+                lo1, hi1 = (_int8x4_to_bf16_pairs(_byte_perm(words[2], words[3], sel))
+                            for sel in (0x5140, 0x7362))
+                for j, (p0, p1) in enumerate(zip(lo0 + hi0, lo1 + hi1)):
+                    b0[j, lane], b1[j, lane] = p0, p1
+            for mt in range(mt_tiles):
+                # ldmatrix.x4: lane l addresses row l % 8 of matrix l / 8
+                addr = []
+                for lane in range(32):
+                    lrow = (lane & 7) + ((lane >> 3) & 1) * 8
+                    addr.append((_x_off(lrow, 2 * kk + (lane >> 4)) + mt * 16 * _XROW) // 2)
+                a = np.zeros((32, 4, 2))
+                for lane in range(32):
+                    for i in range(4):
+                        src = addr[8 * i + lane // 4] + 2 * (lane % 4)
+                        a[lane, i] = xmem[src:src + 2]
+                # mma.sync m16n8k16 on the fragments
+                A, B = np.zeros((16, 16)), np.zeros((4, 16, 8))
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    A[g, 2 * t:2 * t + 2], A[g + 8, 2 * t:2 * t + 2] = a[lane, 0], a[lane, 1]
+                    A[g, 2 * t + 8:2 * t + 10], A[g + 8, 2 * t + 8:2 * t + 10] = a[lane, 2], a[lane, 3]
+                    for j in range(4):
+                        B[j, 2 * t:2 * t + 2, g] = b0[j, lane]
+                        B[j, 2 * t + 8:2 * t + 10, g] = b1[j, lane]
+                for j in range(4):
+                    C = A @ B[j]
+                    for lane in range(32):
+                        g, t = lane >> 2, lane & 3
+                        acc[mt, j, lane] += [C[g, 2 * t], C[g, 2 * t + 1],
+                                             C[g + 8, 2 * t], C[g + 8, 2 * t + 1]]
+        for mt in range(mt_tiles):                       # the epilogue's partial tile
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for h in range(2):
+                    col = 32 * warp + 8 * t
+                    red[16 * mt + g + 8 * h, col:col + 4] = acc[mt, :, lane, 2 * h]
+                    red[16 * mt + g + 8 * h, col + 4:col + 8] = acc[mt, :, lane, 2 * h + 1]
+    want = x @ codes.astype(np.float64)
+    np.testing.assert_array_equal(red, want)
+    assert want[:m, :n_valid].any()
+    assert not want[m:].any() and not want[:, n_valid:].any()
+
+
+def test_k2_variant_sources_change_one_choice_each(tmp_path, monkeypatch):
+    """The design sweep's variant copies of w8a16.cu: a variant without
+    edits (the committed one, and a change of the plan alone) is the source
+    itself, every edited one differs from it and from the others, an edit
+    that no longer matches the source raises, and the sweep refuses to run
+    off the card."""
+    dirs = k2v.variant_sources(str(tmp_path))
+    with open(os.path.join(k2v._build.CSRC_DIR, "w8a16.cu")) as f:
+        committed = f.read()
+    texts = {v: open(os.path.join(d, "w8a16.cu")).read() for v, d in dirs.items()}
+    edited = {v: t for v, t in texts.items() if k2v.VARIANTS[v][3]}
+    assert all(texts[v] == committed for v in texts if v not in edited)
+    assert committed not in edited.values() and len(set(edited.values())) == len(edited) >= 6
+    assert all(os.path.exists(os.path.join(d, "mma_common.cuh")) for d in dirs.values())
+    monkeypatch.setitem(k2v.VARIANTS, "stale", (64, 4, 8, [("no such line", "x", 1)], True))
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        k2v.variant_sources(str(tmp_path), names=("stale",))
+    with pytest.raises(ValueError, match="needs the card"):
+        k2v.profile_k2_variants(device="cpu")

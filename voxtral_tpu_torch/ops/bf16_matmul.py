@@ -25,6 +25,8 @@ import functools
 
 import torch
 
+from voxtral_tpu_torch.ops._scratch import cluster_splits, resident_per_cluster
+
 BF16_MATMUL_MAX_ROWS = 64                 # = kMaxM in the source
 _COLS = 128                               # = kCols: columns per block
 _STAGE_ROWS = 64                          # = kStageRows: K rows per stage
@@ -54,12 +56,8 @@ def t3_plan(m: int, k: int, n: int, resident) -> tuple[int, int, int, int]:
     m's 16-row tile count."""
     if not 1 <= m <= BF16_MATMUL_MAX_ROWS:
         raise ValueError(f"M = {m} rows: the kernel takes 1..{BF16_MATMUL_MAX_ROWS}")
-    tiles = -(-n // _COLS)
-    stages = -(-k // _STAGE_ROWS)                 # stages of the whole K
-    splits = max([1] + [c for c in range(2, min(_MAX_SPLITS, stages) + 1)
-                        if tiles * c <= resident[c - 1]])
-    k_slice = -(-stages // splits) * _STAGE_ROWS
-    return _COLS, _STAGES, k_slice, -(-k // k_slice)
+    return (_COLS, _STAGES,
+            *cluster_splits(k, -(-n // _COLS), _STAGE_ROWS, resident, _MAX_SPLITS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -77,16 +75,9 @@ def _lib():
 @functools.lru_cache(maxsize=None)
 def _resident(index: int, m_tiles: int) -> tuple[int, ...]:
     """Blocks of the kernel for m_tiles 16-row tiles resident at once on
-    card `index`, for clusters of 1..8 blocks (from the CUDA runtime)."""
-    out = []
-    with torch.cuda.device(index):
-        for c in range(1, _MAX_SPLITS + 1):
-            blocks = ctypes.c_int(0)
-            err = _lib().bf16_matmul_resident_blocks(16 * m_tiles, c, ctypes.byref(blocks))
-            if err != 0 or (c == 1 and blocks.value < 1):
-                raise RuntimeError(f"bf16_matmul occupancy query failed: CUDA error {err}")
-            out.append(blocks.value)
-    return tuple(out)
+    card `index`, for clusters of 1..8 blocks."""
+    return resident_per_cluster(_lib().bf16_matmul_resident_blocks, index, 16 * m_tiles,
+                                _MAX_SPLITS, "bf16_matmul")
 
 
 def bf16_matmul_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

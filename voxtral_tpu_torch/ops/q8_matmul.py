@@ -5,8 +5,10 @@
 
 x: [M, K] f32 or bf16; q: int8 [K, N] (the param tree's [in, out] layout);
 s: f32 [N] per-out scales. This is the JAX package's Q8 `linear` without
-the bias (voxtral_tpu/ops/linear.py:25-29), an XLA mixed-dtype dot there;
-no PyTorch call multiplies bf16 by int8.
+the bias (voxtral_tpu/ops/linear.py:25-29), an XLA mixed-dtype dot there.
+The nearest PyTorch call, `torch._weight_int8pack_mm`, takes the codes as
+[N, K] and the scales in x's dtype; `chip_smoke.py` times it as K2's
+yardstick, and the port never calls it.
 
 `q8_matmul` routes on the device and on M alone:
 - a CPU tensor takes the plain version;
@@ -28,14 +30,14 @@ import functools
 
 import torch
 
-from voxtral_tpu_torch.ops._scratch import sm_count, zeroed_scratch
+from voxtral_tpu_torch.ops._scratch import cluster_splits, resident_per_cluster
 
 # Decode's largest M (streams per step) that goes to the GEMV kernel
-Q8_GEMV_MAX_ROWS = 64
-# = kCols, kRowStep, the largest MT and kSlice in w8a16.cu
-_COLS, _ROW_STEP, _M_CHUNK, _MAX_SLICE = 32, 16, 16, 512
-_BLOCKS_PER_SM = 4                         # split K until about this many blocks
-_N_COUNTERS = 1 << 16
+Q8_GEMV_MAX_ROWS = 64                     # = kMaxM in the source
+_COLS = 128                               # = kCols: columns per block (bf16 route)
+_STAGE_ROWS = 64                          # = kStageRows: K rows per stage
+_STAGES = 4                               # = kStages: stages in the ring
+_MAX_SPLITS = 8                           # = kMaxSplits: one portable cluster
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches (a wrapper adds one where it launches its kernel and
@@ -55,36 +57,48 @@ def q8_matmul_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.
     return (torch.mm(x.float(), q.float()) * s.float()).to(x.dtype)
 
 
-def split_k(m: int, k: int, n: int, sms: int) -> tuple[int, int]:
-    """(k_slice, splits) for K2: slices of at most 512 rows (the kernel
-    holds a slice's weights in registers), split further until the grid has
-    about _BLOCKS_PER_SM blocks per SM while slices stay at least 128 rows
-    long; each slice a multiple of 16 rows."""
-    tiles = -(-n // _COLS) * -(-m // _M_CHUNK)
-    splits = max(-(-k // _MAX_SLICE),
-                 min(-(-_BLOCKS_PER_SM * sms // tiles), k // 128))
-    k_slice = -(-(-(-k // splits)) // _ROW_STEP) * _ROW_STEP
-    return k_slice, -(-k // k_slice)
+def k2_plan(m: int, k: int, n: int, resident) -> tuple[int, int, int, int]:
+    """(column tile width, stages, k_slice, splits) of K2 on x [m, k] and
+    codes [k, n]. `resident[c - 1]`: the bf16 kernel's blocks resident at
+    once on the card when a column tile's splits form clusters of c blocks
+    (c = 1..8). A block per 128-column tile with all of m's 16-row tiles,
+    and K split into the most splits (at most 8, one cluster) whose grid
+    stays within one wave, each slice a whole number of 64-row stages and
+    no split empty. The f32 route splits K the same way. `m` is checked
+    here; it enters through `resident`, which the wrapper asks the runtime
+    for at m's 16-row tile count."""
+    if not 1 <= m <= Q8_GEMV_MAX_ROWS:
+        raise ValueError(f"M = {m} rows: the kernel takes 1..{Q8_GEMV_MAX_ROWS}")
+    return (_COLS, _STAGES,
+            *cluster_splits(k, -(-n // _COLS), _STAGE_ROWS, resident, _MAX_SPLITS))
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     from voxtral_tpu_torch import _build
-    fn = _build.load("w8a16.cu").w8a16_gemv_launch
+    lib = _build.load("w8a16.cu")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ci] + [vp] * 6 + [ci] * 5 + [vp]
-    fn.restype = ci
-    return fn
+    lib.w8a16_gemv_launch.argtypes = [ci] + [vp] * 4 + [ci] * 5 + [vp]
+    lib.w8a16_gemv_launch.restype = ci
+    lib.w8a16_resident_blocks.argtypes = [ci, ci, ctypes.POINTER(ctypes.c_int)]
+    lib.w8a16_resident_blocks.restype = ci
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(index: int, m_tiles: int) -> tuple[int, ...]:
+    """Blocks of the bf16 kernel for m_tiles 16-row tiles resident at once
+    on card `index`, for clusters of 1..8 blocks."""
+    return resident_per_cluster(_lib().w8a16_resident_blocks, index, 16 * m_tiles,
+                                _MAX_SPLITS, "w8a16_gemv")
 
 
 def w8a16_gemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """K2 on CUDA tensors: x [M, K] f32/bf16 contiguous, 16-byte aligned,
-    M <= 64, K % 8 == 0; q int8 [K, N] contiguous (N % 4 == 0, 4-byte
-    aligned); s f32 [N]. Launches on the current stream; raises on anything
-    else."""
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"w8a16_gemv needs CUDA tensors, got {dev}")
+    """K2 on CUDA tensors: x [M, K] f32/bf16, 1 <= M <= 64, K % 8 == 0;
+    q int8 [K, N], N % 16 == 0; s f32 [N]; all contiguous, x, q and s
+    16-byte aligned (whole 16-byte chunks of every row, for the kernel's
+    stages). One launch on the current stream; raises on anything else,
+    before the card."""
     if x.dtype not in _DTYPE_CODES or x.dim() != 2:
         raise ValueError(f"x must be 2-D f32 or bf16, got {x.dtype} {tuple(x.shape)}")
     m, k = x.shape
@@ -95,25 +109,21 @@ def w8a16_gemv(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tenso
         raise ValueError(f"s must be f32 [{n}], got {s.dtype} {tuple(s.shape)}")
     if not 1 <= m <= Q8_GEMV_MAX_ROWS:
         raise ValueError(f"M = {m} rows: the kernel takes 1..{Q8_GEMV_MAX_ROWS}")
-    if n % 4 or k % 8 or q.data_ptr() % 4 or x.data_ptr() % 16:
-        raise ValueError(f"K = {k} must be a multiple of 8, N = {n} of 4, x 16-byte "
-                         "and q 4-byte aligned")
-    for t in (x, q, s):
-        if t.device != dev:
-            raise ValueError(f"tensor on {t.device}, expected {dev}")
-        if not t.is_contiguous():
-            raise ValueError("w8a16_gemv needs contiguous tensors")
+    if not all(t.is_contiguous() for t in (x, q, s)):
+        raise ValueError("w8a16_gemv needs contiguous tensors")
+    if k % 8 or n % 16 or any(t.data_ptr() % 16 for t in (x, q, s)):
+        raise ValueError(f"K = {k} must be a multiple of 8 and N = {n} of 16, x, q and s "
+                         "16-byte aligned")
+    dev = x.device
+    if dev.type != "cuda" or q.device != dev or s.device != dev:
+        raise ValueError(f"w8a16_gemv needs CUDA tensors on one card, got {dev}, "
+                         f"{q.device}, {s.device}")
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    if -(-n // _COLS) * -(-m // _M_CHUNK) > _N_COUNTERS:
-        raise ValueError(f"N = {n} has more column tiles than the kernel's counters")
-    counters = zeroed_scratch(index, "w8a16_gemv", _N_COUNTERS)
-    k_slice, splits = split_k(m, k, n, sm_count(index))
+    _, _, k_slice, splits = k2_plan(m, k, n, _resident(index, -(-m // 16)))
     y = torch.empty((m, n), dtype=x.dtype, device=dev)
-    part = torch.empty((splits * m * n if splits > 1 else 1,), dtype=torch.float32,
-                       device=dev)
-    err = _lib()(_DTYPE_CODES[x.dtype], x.data_ptr(), q.data_ptr(), s.data_ptr(),
-                 y.data_ptr(), part.data_ptr(), counters.data_ptr(), m, k, n, k_slice,
-                 splits, torch.cuda.current_stream(dev).cuda_stream)
+    err = _lib().w8a16_gemv_launch(_DTYPE_CODES[x.dtype], x.data_ptr(), q.data_ptr(),
+                                   s.data_ptr(), y.data_ptr(), m, k, n, k_slice, splits,
+                                   torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"w8a16_gemv kernel launch failed: CUDA error {err}")
     LAUNCHES["w8a16_gemv"] += 1

@@ -41,7 +41,10 @@ Phases (any failure raises and the script exits non-zero):
      and T7 (attn4d, block-major rings) at B = 16, P = 2088, blk 256, 512
      and 1024, with the tool's positions and with masked slots and a fully
      masked stream (exact zeros), T6 == T7 bit for bit; P = 77 and B = 1
-     checked; all within two bf16 ulps of max|out|. T8 (rd_flat, blk 512),
+     checked; T5's edges (P = 1, P = 15, B = 1 at P = 2088, one kv head,
+     two splits at B = 16, B = 64 at P = 1500, the largest P at B = 1 and
+     64), each with two bit-identical launches; all within two bf16 ulps
+     of max|out|. T8 (rd_flat, blk 512),
      T9 (rd_blockmajor, blk 256, 512) and T10 (rd_g, (G, blk) (4, 256),
      (8, 256), (4, 512)) at B = 32, P = 2088, bit for bit, ragged shapes
      checked and B % G != 0 refused. K1-tp: K1, K1-int8 (m = 2 and 8 ranks)
@@ -1029,6 +1032,14 @@ def phase1_tools():
 LAYOUT_P, LAYOUT_KV, LAYOUT_BLKS = 2088, 1024, (256, 512, 1024)
 
 
+# T5's edges (B, P, kv_dim), checked: one slot; under one tile; one stream
+# at the tool's P (8 splits); one kv head; B 16 (two splits in clusters);
+# B 64 at P 1500 (one split, beyond one wave); the largest P the plan
+# takes (8 shares of 2096), at one stream and at B 64.
+T5_EDGES = ((1, 1, 1024), (3, 15, 1024), (1, LAYOUT_P, 1024), (4, 300, 128),
+            (16, LAYOUT_P, 1024), (64, 1500, 1024), (1, 16768, 1024), (64, 16768, 1024))
+
+
 def _layout_tol(ref):
     """Two bf16 ulps of max|ref| (T5_CHECK_RTOL): e rounds to bf16 after
     f32 sums taken in another order, and the output rounds to bf16."""
@@ -1187,14 +1198,17 @@ def _t67_rows(b, p, blk, seed, timed, masked):
 
 def phase1_layout():
     """T4 and T5 at the int4-unpack tool's shapes (B = 32, P = 2088, timed)
-    and ragged ones (P = 77, B = 1; 4 kv heads), T6 and T7 at the layout
-    tool's (B = 16, P = 2088, each blk timed), each blk also masked (checked),
-    and P = 77, B = 1 masked (checked). Returns the rows."""
+    and ragged ones (P = 77, B = 1; 4 kv heads), T5's edges (`T5_EDGES`),
+    T6 and T7 at the layout tool's (B = 16, P = 2088, each blk timed), each
+    blk also masked (checked), and P = 77, B = 1 masked (checked). Returns
+    the rows."""
     rows = []
     for kernel in ("attn8", "attn4"):
         rows.append(_t45_row(kernel, 32, LAYOUT_P, LAYOUT_KV, 750, True))
         rows.append(_t45_row(kernel, 1, 77, LAYOUT_KV, 751, False))
         rows.append(_t45_row(kernel, 5, 300, 512, 752, False))
+    for i, (b, p, kv) in enumerate(T5_EDGES):
+        rows.append(_t45_row("attn4", b, p, kv, 790 + i, False))
     for i, blk in enumerate(LAYOUT_BLKS):
         rows += _t67_rows(16, LAYOUT_P, blk, 760 + i, True, False)
         rows += _t67_rows(16, LAYOUT_P, blk, 770 + i, False, True)

@@ -1,9 +1,10 @@
 // Tensor-core and asynchronous-copy building blocks shared by the port's
 // mma.sync kernels (ring_attention.cu, ring_attention_enc.cu,
-// logits_argmax.cu, w8a16.cu, bf16_matmul.cu): the m16n8k16 bf16 product
-// with an f32 accumulator, ldmatrix (plain and transposed), cp.async with its
-// group waits, two exact int8 -> bf16 conversions, the in-register 8 x 8
-// transpose and one-instruction 2^x.
+// logits_argmax.cu, w8a16.cu, bf16_matmul.cu, layout_attention.cu): the
+// m16n8k16 bf16 product with an f32 accumulator, ldmatrix (plain and
+// transposed), cp.async with its group waits, two exact int8 -> bf16
+// conversions and one exact int4 (nibble) -> bf16 conversion, the
+// in-register 8 x 8 transpose and one-instruction 2^x.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major) a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
@@ -118,6 +119,34 @@ __device__ __forceinline__ uint2 int8x4_to_bf16_pairs(uint32_t w) {
     return *reinterpret_cast<uint32_t*>(&d);
   };
   return make_uint2(pair(0x4040 | I0 | (I1 << 8)), pair(0x4040 | I2 | (I3 << 8)));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t v) {
+  return *reinterpret_cast<__nv_bfloat162*>(&v);
+}
+
+// The low and the high nibbles of a packed int4 word (4 bytes, each two
+// signed nibbles), each biased to nibble + 8 in the low half of a byte: the
+// input of nibbles_to_bf16. The XOR is shared when both are taken.
+__device__ __forceinline__ uint32_t lo_nibbles(uint32_t w) {
+  return (w ^ 0x88888888u) & 0x0F0F0F0Fu;
+}
+
+__device__ __forceinline__ uint32_t hi_nibbles(uint32_t w) {
+  return ((w ^ 0x88888888u) >> 4) & 0x0F0F0F0Fu;
+}
+
+// 4 signed nibbles, biased to nibble + 8 in the low half of each byte of
+// u -> bf16 pairs (0, 1) and (2, 3), exact: 128 + u is a bf16 with the byte
+// in its mantissa (a byte permute), minus 136 (one bf16x2 subtraction).
+__device__ __forceinline__ uint2 nibbles_to_bf16(uint32_t u) {
+  const __nv_bfloat162 bias = as_bf2(0x43084308u);                // 136, 136
+  return make_uint2(as_u32(__hsub2(as_bf2(__byte_perm(u, 0x43u, 0x4140)), bias)),
+                    as_u32(__hsub2(as_bf2(__byte_perm(u, 0x43u, 0x4342)), bias)));
 }
 
 // An 8 x 8 b16 matrix held as mma fragments (lane l: row l / 4, elements

@@ -417,23 +417,6 @@ template <int RING> struct RawRow { static constexpr int N = 2 * kHD; };   // bf
 template <> struct RawRow<kInt8Ring> { static constexpr int N = kHD; };
 template <> struct RawRow<kInt4Ring> { static constexpr int N = kHD / 2; };
 
-__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t v) {
-  return *reinterpret_cast<__nv_bfloat162*>(&v);
-}
-
-// 4 signed nibbles, biased to nibble + 8 in the low half of each byte of
-// u -> bf16 pairs (0, 1) and (2, 3), exact: 128 + u is a bf16 with the byte
-// in its mantissa (a byte permute), minus 136 (one bf16x2 subtraction).
-__device__ __forceinline__ uint2 nibbles_to_bf16(uint32_t u) {
-  const __nv_bfloat162 bias = __floats2bfloat162_rn(136.f, 136.f);
-  return make_uint2(as_u32(__hsub2(as_bf2(__byte_perm(u, 0x43u, 0x4140)), bias)),
-                    as_u32(__hsub2(as_bf2(__byte_perm(u, 0x43u, 0x4342)), bias)));
-}
-
 // Lane chunk c (8 bf16) of staged row j.
 __device__ __forceinline__ __nv_bfloat16* kv_chunk(__nv_bfloat16 (*rows)[kHD], int j, int c) {
   return rows[j] + ((c ^ (j & 7)) << 3);
@@ -585,8 +568,8 @@ ring_enc_mma_kernel(const EncArgs a) {
         uint32_t lo[8], hi[8];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const uint2 pl = nibbles_to_bf16((words[i] & 0x0F0F0F0Fu) ^ 0x08080808u);
-          const uint2 ph = nibbles_to_bf16(((words[i] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u);
+          const uint2 pl = nibbles_to_bf16(lo_nibbles(words[i]));
+          const uint2 ph = nibbles_to_bf16(hi_nibbles(words[i]));
           lo[2 * i] = pl.x;
           lo[2 * i + 1] = pl.y;
           hi[2 * i] = ph.x;

@@ -24,6 +24,15 @@ matrix and writes the same lanes of the bf16 output.
 The batch comes from the tensors (the tools' kernels read a module global
 B). A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel (counted in `LAUNCHES`) or raises.
+
+T4, T6 and T7 run on the CUDA cores, one block per (stream, kv head). T5
+runs on the tensor cores with P split into fixed shares of 16-slot tiles,
+the splits of a (stream, kv head) one thread-block cluster that merges in
+one launch; `t5_plan` sizes the split from the shapes and the card's
+resident blocks, and the wrapper refuses what the plan cannot take before
+the card. T4, T6 and T7 take P up to 13440 slots (the CUDA-core kernels'
+scores in one block's shared memory); T5 takes up to 16768 (8 shares of
+2096).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import math
 
 import torch
 
+from voxtral_tpu_torch.ops._scratch import resident_per_cluster, sm_count
 from voxtral_tpu_torch.quant import unpack_int4
 
 HD, GROUP = 128, 4
@@ -42,6 +52,10 @@ _NEG = -1e30
 _SCALE = float(torch.tensor(1.0 / math.sqrt(HD), dtype=torch.float32))   # f32 value
 _RED_BYTES = 8 * GROUP * HD * 4            # = kRedBytes in the source
 _MAX_DYNAMIC_SMEM = 232448 - 1024          # = kMaxDynamicSmem
+_T5_TILE = 16                              # = kT5Tile: slots per tile
+_T5_MAX_SPLITS = 8                         # = kT5MaxSplits: one portable cluster
+_T5_MAX_SHARE = 2096                       # = kT5MaxShare: slots of one split
+T5_MAX_SLOTS = _T5_MAX_SPLITS * _T5_MAX_SHARE
 
 # Kernel launches; a wrapper adds one where it launches its kernel and
 # nowhere else.
@@ -143,11 +157,45 @@ def _lib():
     from voxtral_tpu_torch import _build
     lib = _build.load("layout_attention.cu")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.attn_unmasked_launch.argtypes = [vp] * 4 + [ci] * 4 + [vp]
-    lib.attn_unmasked_launch.restype = ci
+    lib.attn8_launch.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+    lib.attn8_launch.restype = ci
+    lib.attn4_launch.argtypes = [vp] * 4 + [ci] * 5 + [vp]
+    lib.attn4_launch.restype = ci
+    lib.attn4_resident_blocks.argtypes = [ci, ctypes.POINTER(ctypes.c_int)]
+    lib.attn4_resident_blocks.restype = ci
     lib.attn_masked_launch.argtypes = [vp] * 8 + [ci] * 4 + [vp]
     lib.attn_masked_launch.restype = ci
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(index: int) -> tuple[int, ...]:
+    """T5's blocks resident at once on card `index` in clusters of 1..8."""
+    return resident_per_cluster(lambda _rows, c, blocks: _lib().attn4_resident_blocks(c, blocks),
+                                index, 0, _T5_MAX_SPLITS, "attn4")
+
+
+def t5_plan(b: int, p: int, kv_heads: int, sms: int, resident) -> tuple[int, int]:
+    """(share, splits) of T5 on b streams, p slots and kv_heads heads, on a
+    card of `sms` SMs where `resident[c - 1]` of T5's blocks are resident at
+    once when a (stream, head)'s splits form clusters of c blocks (c =
+    1..8). Split r takes slots [r share, (r + 1) share), each share whole
+    16-slot tiles and no split empty: the fewest splits (at most 8) whose b
+    x kv_heads x splits blocks cover every SM, fewer where that grid would
+    pass one wave, and never fewer than shares of at most 2096 slots need.
+    Refuses p outside 1..16768."""
+    if b < 1 or kv_heads < 1:
+        raise ValueError(f"attn4: {b} streams, {kv_heads} kv heads")
+    if not 1 <= p <= T5_MAX_SLOTS:
+        raise ValueError(f"attn4: {p} slots; the kernel takes 1..{T5_MAX_SLOTS} "
+                         f"({_T5_MAX_SPLITS} shares of {_T5_MAX_SHARE})")
+    pairs, tiles = b * kv_heads, -(-p // _T5_TILE)
+    need = -(-p // _T5_MAX_SHARE)
+    splits = min(_T5_MAX_SPLITS, tiles, max(need, -(-sms // pairs)))
+    while splits > need and pairs * splits > resident[splits - 1]:
+        splits -= 1
+    share = -(-tiles // splits) * _T5_TILE
+    return share, -(-p // share)
 
 
 def _smem_bytes(slots: int, masked: bool) -> int:
@@ -161,12 +209,16 @@ def _check_dtypes(name: str, pairs) -> None:
             raise ValueError(f"{name} takes {dtype}, got {t.dtype}")
 
 
-def _check_dims(name: str, q, b: int, p: int, hkv: int, masked: bool) -> None:
+def _check_dims(name: str, q, b: int, p: int, hkv: int) -> None:
     if q.shape != (b, 1, hkv * GROUP * HD):
         raise ValueError(f"{name}: q {tuple(q.shape)} does not match {hkv} kv heads of "
                          f"{HD} lanes ({GROUP} query rows each) and {b} streams")
-    if not 1 <= b <= 65535 or p < 1:
-        raise ValueError(f"{name}: {b} streams, {p} slots")
+    if not 1 <= b <= 65535 or p < 1 or hkv < 1:
+        raise ValueError(f"{name}: {b} streams, {p} slots, {hkv} kv heads")
+
+
+def _check_smem(name: str, p: int, masked: bool) -> None:
+    """The CUDA-core kernels keep a block's P score rows in shared memory."""
     if _smem_bytes(p, masked) > _MAX_DYNAMIC_SMEM:
         raise ValueError(f"{name}: {p} slots' score rows exceed the block's shared memory")
 
@@ -198,12 +250,21 @@ def _unmasked_kernel(name: str, q, kr, vr, packed: bool) -> torch.Tensor:
         raise ValueError(f"{name} takes two [B, P, kv_heads * {lanes}] rings, got "
                          f"{tuple(kr.shape)}, {tuple(vr.shape)}")
     b, p, kv = kr.shape
-    _check_dims(name, q, b, p, kv // lanes, False)
+    hkv = kv // lanes
+    _check_dims(name, q, b, p, hkv)
+    if not packed:
+        _check_smem(name, p, False)
+    elif p > T5_MAX_SLOTS:
+        raise ValueError(f"{name}: {p} slots; the kernel takes 1..{T5_MAX_SLOTS}")
     dev = _device(name, (q, kr, vr))
+    plan = ()
+    if packed:
+        index = dev.index if dev.index is not None else torch.cuda.current_device()
+        plan = t5_plan(b, p, hkv, sm_count(index), _resident(index))
     out = torch.empty_like(q)
-    err = _lib().attn_unmasked_launch(q.data_ptr(), kr.data_ptr(), vr.data_ptr(),
-                                      out.data_ptr(), b, p, kv // lanes, int(packed),
-                                      torch.cuda.current_stream(dev).cuda_stream)
+    launch = _lib().attn4_launch if packed else _lib().attn8_launch
+    err = launch(q.data_ptr(), kr.data_ptr(), vr.data_ptr(), out.data_ptr(), b, p, hkv, *plan,
+                 torch.cuda.current_stream(dev).cuda_stream)
     return _launched(name, err, out)
 
 
@@ -234,7 +295,8 @@ def _masked_kernel(name, q, kr, vr, sp, qp, ks, vs, blk, block_major):
         b, p, kv = kr.shape
     if blk < HD or blk % HD or kv % blk:
         raise ValueError(f"{name}: blk {blk} must be a multiple of {HD} dividing {kv}")
-    _check_dims(name, q, b, p, kv // HD, True)
+    _check_dims(name, q, b, p, kv // HD)
+    _check_smem(name, p, True)
     if (sp.shape != (b, 1, p) or qp.shape != (b, 1, 1)
             or ks.shape != (b, kv // blk, blk // HD, p) or vs.shape != ks.shape):
         raise ValueError(f"{name}: sp {tuple(sp.shape)}, qp {tuple(qp.shape)}, ks "

@@ -91,6 +91,29 @@ Phases (any failure raises and the script exits non-zero):
      each rank must launch its decode ring kernel,
      K1-enc, K3 and, on Q8 weights, K2 (their sum over ranks of the ring
      kernels is K1-tp's launches).
+  8. The serving runtime, FleetManager, on the card (runtime/manager.py).
+     8a: full width, 2 + 2 layers, f32, B = 4, chunk 8 tokens, dec_ring
+     256, on float rings and on Q8 weights with int8 + int4 rings: two
+     streams with a third attached after the first poll, the same with
+     pipeline_steps = 2 and over the s16 wire (s16-exact audio: the same
+     tokens on the card), each stream alone, and a finished non-continuous
+     stream. Every stream's all_ids on cuda must equal a cpu manager's
+     (quantized rings: unless the cpu top-2 logit gap at the first
+     difference is below 1e-2, phase 4's rule); in float mode a stream
+     alone must equal itself in the fleet and the finished stream
+     transcribe_tokens_batch. 8b: full 4B width and depth, bf16, Q8
+     weights with int8 + int4 rings, B = 16, chunk 20 tokens, dec_ring 2048:
+     sixteen clips of 4-12 s (four attached after the first poll) fed in
+     1 s pieces, finished and drained, twice with pipeline_steps = 1 and
+     once with 2; every stream must finish, the three runs give the same
+     tokens, and each launches K1-int8, K1-enc, K2 and K3. Logged: audio-s/s
+     through the manager, steps, the poll wall beside stats()'s
+     step_ms_total (the host share), the mean step wall beside phase 5's
+     direct step, peak memory, and the device busy share of a one-step
+     poll (profiled in the second run, over the first run's wall of it).
+     8c: token latency (bench.py's serving latency): B = 1, chunk 6 tokens,
+     int8 rings, n_alt 2, max_steps_per_poll 1; p50/p95 per poll over 50
+     feeds after 12 warm-up feeds, with pipeline_steps 1 and 2, logged.
 The next-to-last lines are the card's name/power limit and one JSON object
 with each kernel's numbers; the last line is the run's result as JSON.
 Weights are random (seeded): tokens are meaningless but deterministic.
@@ -2144,24 +2167,31 @@ def phase5():
     return total, results
 
 
+def _device_rows(prof):
+    """Kernel rows of a profile, (self device us, count, name), largest
+    first: CPU op ranges and annotations projected onto the device timeline
+    repeat their kernels' time and are left out."""
+    from torch.autograd import DeviceType
+    avgs = prof.key_averages()
+    cpu_keys = {e.key for e in avgs if e.device_type == DeviceType.CPU}
+    rows = [(e.self_device_time_total, e.count, e.key) for e in avgs
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False) and e.key not in cpu_keys]
+    return sorted(rows, reverse=True)
+
+
 def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, mode):
     """One more fleet step under torch.profiler: the device's busy share of
     the unprofiled wall time `wall_s` of the previous step (same shapes, one
     stream of work, so kernels do not overlap) and the ring kernels' time.
     The rings are updated in place; `state` is not used again."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from voxtral_tpu_torch.runtime import fleet as fl
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fl.fleet_step_masked(params, cfg, state, pcm, active, forced, t_ada)
         torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    cpu_keys = {e.key for e in avgs if e.device_type == DeviceType.CPU}
-    rows = [(e.self_device_time_total, e.count, e.key) for e in avgs
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False) and e.key not in cpu_keys]
-    rows.sort(reverse=True)
+    rows = _device_rows(prof)
     total_us = sum(r[0] for r in rows)
     enc_us = sum(r[0] for r in rows if "ring_enc_" in r[2])       # f32, mma, merge
     dec_us = sum(r[0] for r in rows if "ring_partial" in r[2] or "ring_merge" in r[2]
@@ -2179,6 +2209,349 @@ def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, m
     for us, count, key in rows[:10]:
         log(f"[5]   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
     return share
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the serving runtime (FleetManager) on the card
+# ---------------------------------------------------------------------------
+
+# 8a's ring modes: float rings on f32 weights, and Q8 weights with int8
+# decoder + int4 encoder rings (the serving configuration)
+MGR_MODES = {"float": dict(kv_dtype="float"),
+             "q8+int8+int4": dict(kv_dtype="int8", enc_kv_dtype="int4")}
+MGR_GAP = 1e-2          # phase 4's exemption: a cpu top-2 logit gap below it
+SERVE_B, SERVE_CHUNK, SERVE_LATE = 16, 20, 4
+
+
+def _gap_recorder():
+    """FleetManager with n_alt = 2 that keeps, for every token it appends to
+    a slot's all_ids, the top-2 logit gap of that token (phase 8a's cpu
+    reference: phase 4's exemption for quantized rings needs the gap)."""
+    from voxtral_tpu_torch.runtime import FleetManager
+
+    class GapRecorder(FleetManager):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, n_alt=2, **kwargs)
+            self.gaps = {}
+
+        def attach(self):
+            sid = super().attach()
+            self.gaps[sid] = []
+            return sid
+
+        def _consume(self, sid, toks, forced, alt_info=None):
+            n0 = len(self.slots[sid].all_ids)
+            super()._consume(sid, toks, forced, alt_info)
+            vals, _, best = alt_info
+            live = [i for i, t in enumerate(toks) if forced[i] < 0 and t >= 0]
+            self.gaps[sid] += [float(best[i] - vals[i][0])
+                               for i in live[:len(self.slots[sid].all_ids) - n0]]
+    return GapRecorder
+
+
+def _mgr_serve(mgr, clips, late=(), poll=None):
+    """Serve `clips` ({name: audio}) through `mgr`: attach every clip not in
+    `late`, feed 1 s pieces round-robin with a poll after each round, attach
+    the `late` clips after the first poll, finish each clip once fed, then
+    poll until every stream has finished. `poll(mgr, round)` stands in for
+    mgr.poll(). Returns ({name: sid}, [(steps, poll wall s)])."""
+    poll = poll or (lambda m, _: m.poll())
+    sids = {name: mgr.attach() for name in clips if name not in late}
+    pos = dict.fromkeys(clips, 0)
+    walls = []
+    for rnd in range(2000):
+        if rnd and all(mgr.is_finished(sid) for sid in sids.values()) \
+                and len(sids) == len(clips):
+            break
+        for name, sid in sids.items():
+            a = clips[name]
+            if pos[name] < len(a):
+                mgr.feed(sid, a[pos[name]:pos[name] + 16000])
+                pos[name] += 16000
+                if pos[name] >= len(a):
+                    mgr.finish(sid)
+        t0 = time.perf_counter()
+        steps = poll(mgr, rnd)
+        walls.append((steps, time.perf_counter() - t0))
+        if rnd == 0:
+            sids.update((name, mgr.attach()) for name in late)
+    check(all(mgr.is_finished(sid) for sid in sids.values()), "streams never finished")
+    return sids, walls
+
+
+def _mgr_ids(mgr, sids):
+    return {name: list(mgr.slots[sid].all_ids) for name, sid in sids.items()}
+
+
+def _mgr_vs_cpu(mode, what, got, ref, gaps):
+    """cuda all_ids against the cpu reference's: equal, or on quantized rings
+    first different where the cpu top-2 gap is below MGR_GAP (later tokens
+    follow the flip, as in phase 4). Returns notes on the differences."""
+    notes = []
+    for name, r in ref.items():
+        g = got[name]
+        if g == r:
+            continue
+        i = next((k for k, (x, y) in enumerate(zip(g, r)) if x != y), min(len(g), len(r)))
+        check(mode != "float", f"[8a] float {what} {name}: cuda differs from cpu at "
+                               f"token {i} of {len(r)}")
+        gap = gaps[name][i] if i < len(gaps[name]) else float("inf")
+        check(gap < MGR_GAP, f"[8a] {mode} {what} {name}: cuda differs from cpu at "
+                             f"token {i} with a cpu top-2 gap of {gap}")
+        notes.append(f"{what} {name} first differs at token {i} (gap {gap:.3g})")
+    return notes
+
+
+def phase8a(total):
+    """FleetManager at full width, 2 + 2 layers, f32, B = 4, chunk 8 tokens,
+    dec_ring 256: cuda against a cpu manager in float mode and in Q8 +
+    int8 + int4 mode. Scenarios: two streams and a mid-flight attach (the
+    fleet run, against the cpu); the same with pipeline_steps = 2 and over
+    the s16 wire (the fleet run's tokens); streams A and C alone (float:
+    the fleet run's tokens, which are the cpu's; quantized: against the
+    cpu); float: a finished non-continuous stream against the cpu and
+    transcribe_tokens_batch. Adds the cuda drives' launches to `total`."""
+    import torch
+    from voxtral_tpu_torch.models.pipeline import transcribe_tokens_batch
+    from voxtral_tpu_torch.quant import quantize_params
+    from voxtral_tpu_torch.runtime import FleetManager
+    from voxtral_tpu_torch.weights import random_params
+    cfg = _reduced_config()
+    params = random_params(cfg, seed=0, device="cuda")
+    clips = {name: _s16_exact(synthetic_audio(sec, seed))
+             for name, sec, seed in (("A", 2.0, 81), ("B", 1.5, 82), ("C", 1.5, 83),
+                                     ("D", 1.7, 84))}
+    fleet = {k: clips[k] for k in "ABC"}
+    recorder = _gap_recorder()
+    base = dict(chunk_tokens=8, dec_ring=256)
+    for mode, rings in MGR_MODES.items():
+        if mode.startswith("q8"):          # the ada MLPs stay float
+            params = quantize_params(params)
+        params_cpu = _cpu_copy(params)
+        t0 = time.perf_counter()
+
+        def on_cuda(clips_, late=(), **kw):
+            _reset_counts()
+            mgr = FleetManager(params, cfg, **base, **rings, **kw)
+            sids, _ = _mgr_serve(mgr, clips_, late)
+            for k, v in _counts().items():
+                total[k] += v
+            return _mgr_ids(mgr, sids)
+
+        def on_cpu(clips_, late=(), **kw):
+            mgr = recorder(params_cpu, cfg, **base, **rings, device="cpu", **kw)
+            sids, _ = _mgr_serve(mgr, clips_, late)
+            return _mgr_ids(mgr, sids), {n: mgr.gaps[s] for n, s in sids.items()}
+
+        runs = {"fleet": on_cuda(fleet, ("C",), batch=4)}
+        t_cuda = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        notes = _mgr_vs_cpu(mode, "fleet", runs["fleet"], *on_cpu(fleet, ("C",), batch=4))
+        runs["pipelined"] = on_cuda(fleet, ("C",), batch=4, pipeline_steps=2)
+        runs["s16"] = on_cuda(fleet, ("C",), batch=4, wire_dtype="s16")
+        for what in ("pipelined", "s16"):
+            check(runs[what] == runs["fleet"], f"[8a] {mode}: {what} != the fleet run")
+        for name in "AC":
+            solo = on_cuda({name: clips[name]}, batch=1)
+            if mode == "float":      # exact on the card, so == the cpu fleet too
+                check(solo[name] == runs["fleet"][name],
+                      f"[8a] float: stream {name} alone != in the fleet")
+            else:                    # K2's rounding follows M: held to the cpu
+                notes += _mgr_vs_cpu(mode, "solo", solo,
+                                     *on_cpu({name: clips[name]}, batch=1))
+        if mode == "float":
+            d_cuda = on_cuda({"D": clips["D"]}, batch=4, continuous=False)
+            notes += _mgr_vs_cpu(mode, "finished", d_cuda,
+                                 *on_cpu({"D": clips["D"]}, batch=4, continuous=False))
+            want, _ = transcribe_tokens_batch(params, cfg, clips["D"], device="cuda")
+            check(d_cuda["D"] == want,
+                  f"[8a] finished stream {d_cuda['D']} != offline {want}")
+            notes.append(f"finished D == offline pipeline over {len(want)} tokens")
+        t_rest = time.perf_counter() - t0
+        log(f"[8a] {mode}: tokens per stream "
+            f"{ {n: len(v) for n, v in runs['fleet'].items()} }; cuda == cpu "
+            + ("except where noted" if any("gap" in x for x in notes) else "everywhere")
+            + "; pipelined == s16 == fleet" + "".join(f"; {x}" for x in notes)
+            + f"; cuda fleet run "
+              f"{t_cuda:.2f} s, the rest {t_rest:.2f} s")
+        del params_cpu
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase8b(total, direct):
+    """FleetManager at full 4B width and depth, bf16, Q8 weights with int8
+    decoder + int4 encoder rings, B = 16, chunk 20 tokens, dec_ring 2048:
+    sixteen clips of 4-12 s, four attached after the first poll, fed in
+    1 s pieces, finished and drained; twice with pipeline_steps = 1 and
+    once with 2. The second run profiles its first poll that takes one
+    step (that run's walls include the profiler's); the busy share is
+    over the first run's wall of the same poll. `direct`: phase 5's direct
+    step walls (ms) in this mode."""
+    import torch
+    from voxtral_tpu_torch.config import voxtral_4b
+    from voxtral_tpu_torch.quant import quantize_params
+    from voxtral_tpu_torch.runtime import FleetManager
+    from voxtral_tpu_torch.weights import random_params
+    cfg = voxtral_4b(torch.bfloat16, torch.bfloat16)
+    params = quantize_params(random_params(cfg, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    clips = {i: synthetic_audio(4.0 + 8.0 * i / (SERVE_B - 1), 300 + i)
+             for i in range(SERVE_B)}
+    late = tuple(range(SERVE_B - SERVE_LATE, SERVE_B))
+    audio_s = sum(a.size for a in clips.values()) / cfg.audio.sample_rate
+    kernels = ("ring_gqa_attention_int8", "ring_gqa_attention_enc", "w8a16_gemv",
+               "fused_logits_argmax")
+    ids, walls, results = [], [], []
+    profiled = {}
+    for rep, depth in ((0, 1), (1, 1), (2, 2)):
+
+        def poll(mgr, rnd):
+            # a poll takes as many steps as its fullest buffer holds chunks
+            # (no watchdog restart fires on these clips)
+            chunks = [len(s.buf) // mgr.chunk_samp for s in mgr.slots if s.active]
+            if rep != 1 or profiled or max(chunks) != 1:
+                return mgr.poll()
+            profiled.update(_profiled_poll(mgr), round=rnd, rows=chunks.count(1))
+            return profiled["steps"]
+
+        mgr = FleetManager(params, cfg, SERVE_B, chunk_tokens=SERVE_CHUNK, dec_ring=2048,
+                           kv_dtype="int8", enc_kv_dtype="int4",
+                           pipeline_steps=depth)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()                          # a main-path run starts
+        t0 = time.perf_counter()
+        sids, run_walls = _mgr_serve(mgr, clips, late, poll)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _counts()                          # ... and ends
+        for k, v in got.items():
+            total[k] += v
+        check(all(got[k] > 0 for k in kernels), f"[8b] run {rep}: launches {got}")
+        run_ids = _mgr_ids(mgr, sids)
+        check(all(0 <= t < cfg.decoder.vocab_size for v in run_ids.values() for t in v),
+              "[8b] token out of range")
+        ids.append(run_ids)
+        walls.append(run_walls)
+        st = mgr.stats()
+        poll_s = sum(w for _, w in run_walls)
+        r = dict(rep=rep, pipeline_steps=depth, streams=SERVE_B, audio_s=audio_s,
+                 wall_s=wall, audio_s_per_s=audio_s / wall, steps=st["steps"],
+                 polls=len(run_walls), steps_per_poll=[k for k, _ in run_walls],
+                 poll_wall_ms=1e3 * poll_s, step_ms_total=mgr.step_ms_total,
+                 host_share=1.0 - mgr.step_ms_total / (1e3 * poll_s),
+                 step_ms=mgr.step_ms_total / st["steps"],
+                 direct_step_ms=float(np.median(direct)),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                 hbm_used_gb=st.get("hbm_used_gb"), generated=st["generated"],
+                 restarts=st["restarts"], launches={k: got[k] for k in kernels},
+                 walls_include_profiler=rep == 1)
+        log(f"[8b] {json.dumps(r)}")
+        results.append(r)
+    check(ids[1] == ids[0], "[8b] tokens differ between the two runs")
+    check(ids[2] == ids[0], "[8b] pipeline_steps = 2 changed the tokens")
+    check(profiled.get("steps") == 1, f"[8b] profiled poll: {profiled}")
+    steps0, wall0 = walls[0][profiled["round"]]
+    check(steps0 == 1, f"[8b] run 0 took {steps0} steps in the profiled poll's round")
+    log(f"[8b] profiled poll (round {profiled['round']}, {profiled['rows']} of "
+        f"{SERVE_B} streams stepping): device busy {profiled['busy_ms']:.3f} ms of the "
+        f"same poll's unprofiled wall {1e3 * wall0:.2f} ms in run 0 (share "
+        f"{profiled['busy_ms'] / (1e3 * wall0):.4f}); phase 5's direct step wall, "
+        f"median {np.median(direct):.2f} ms")
+    return params, cfg, results
+
+
+def _profiled_poll(mgr):
+    """mgr.poll() under torch.profiler: its steps and device busy ms (kernel
+    rows only), with the main kernels' shares."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        steps = mgr.poll()
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    busy = sum(r[0] for r in rows) / 1e3
+
+    def ms(*keys):
+        return sum(r[0] for r in rows if any(k in r[2] for k in keys)) / 1e3
+
+    out = dict(steps=steps, busy_ms=busy, k1_int8_ms=ms("ring_dec_", "ring_partial",
+                                                        "ring_merge"),
+               k1_enc_ms=ms("ring_enc_"), k2_ms=ms("w8a16_"),
+               k3_ms=ms("logits_kernel", "logits_mma_kernel"))
+    log(f"[8b] profiled poll: {json.dumps(out)}")
+    for us, count, key in rows[:8]:
+        log(f"[8b]   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+    return out
+
+
+def phase8c(total, params, cfg):
+    """Token latency through the manager (bench.py:109-171's
+    bench_latency_serving): B = 1, chunk 6 tokens (0.48 s), int8 rings on
+    the Q8 weights, n_alt = 2, alt_cutoff 0.95, max_steps_per_poll = 1;
+    12 warm-up feeds, then 50 timed ones; every poll's wall enters the
+    distribution. Two managers, pipeline_steps = 1 and 2, take their feeds
+    in turns, so both see the same conditions. Logged, not gated."""
+    from voxtral_tpu_torch.runtime import FleetManager
+    mgrs = []
+    for depth in (1, 2):
+        mgr = FleetManager(params, cfg, 1, chunk_tokens=6, dec_ring=2048, kv_dtype="int8",
+                           n_alt=2, alt_cutoff=0.95, max_steps_per_poll=1,
+                           pipeline_steps=depth)
+        mgrs.append((mgr, mgr.attach(), np.random.RandomState(1)))
+
+    def feed_poll(mgr, sid, rng):
+        pcm = ((rng.rand(mgr.chunk_samp) - 0.5) * 0.2).astype(np.float32)
+        t0 = time.perf_counter()
+        mgr.feed(sid, pcm)
+        took = mgr.poll()
+        polls = [(time.perf_counter() - t0) * 1e3]
+        while took:
+            t0 = time.perf_counter()
+            took = mgr.poll()
+            if took:
+                polls.append((time.perf_counter() - t0) * 1e3)
+        return polls
+
+    _reset_counts()                              # a main-path run starts
+    for _ in range(12):
+        for m in mgrs:
+            feed_poll(*m)
+    n0 = [m.slots[sid].generated for m, sid, _ in mgrs]
+    raw = ([], [])
+    for _ in range(50):
+        for k, m in enumerate(mgrs):
+            raw[k].append(feed_poll(*m))
+    for k, v in _counts().items():               # ... and ends
+        total[k] += v
+    for (mgr, sid, _), polls, g0 in zip(mgrs, raw, n0):
+        ms = sorted(x for p in polls for x in p)
+        r = dict(pipeline_steps=mgr.pipeline_steps, p50_ms=ms[len(ms) // 2],
+                 p95_ms=ms[int(len(ms) * 0.95)], max_poll_ms=ms[-1], polls=len(ms),
+                 catch_up_polls=sum(len(p) - 1 for p in polls),
+                 tokens_per_feed=(mgr.slots[sid].generated - g0) / 50,
+                 restarts=mgr.slots[sid].restarts, chunk_s=6 * 0.08)
+        log(f"[8c] {json.dumps(r)}")
+
+
+def phase8(direct):
+    """Phase 8: the serving runtime on the card. Returns its main-path
+    launches per kernel."""
+    import torch
+    total = dict.fromkeys(_counts(), 0)
+    t0 = time.perf_counter()
+    phase8a(total)
+    log(f"[8a] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    params, cfg, _ = phase8b(total, direct)
+    log(f"[8b] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase8c(total, params, cfg)
+    log(f"[8c] took {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return total
 
 
 def ceiling_shares(rows):
@@ -2221,7 +2594,7 @@ def ceiling_shares(rows):
     return out
 
 
-# What each path must launch: the serving path (phases 3 and 5; q8_mm is
+# What each path must launch: the serving path (phases 3, 5 and 8; q8_mm is
 # the Q8 large-M route, not a kernel) and the tools path (phase 6).
 MAIN_PATH = ("ring_gqa_attention", "ring_gqa_attention_int8", "ring_gqa_attention_enc",
              "w8a16_gemv", "fused_logits_argmax", "q8_mm")
@@ -2264,12 +2637,7 @@ def main() -> int:
     log(f"[3] done at {time.perf_counter() - t_start:.1f} s")
     phase4()
     log(f"[4] done at {time.perf_counter() - t_start:.1f} s")
-    launches5, _ = phase5()
-    launches = {k: launches3[k] + launches5[k] for k in launches3}
-    log(f"[5] main-path launches (phases 3 and 5; q8_mm counts the Q8 large-M "
-        f"route's calls): {json.dumps(launches)}")
-    for k in MAIN_PATH:
-        check(launches[k] > 0, f"the main path launched no {k} kernel")
+    launches5, results5 = phase5()
     log(f"[5] done at {time.perf_counter() - t_start:.1f} s")
     tool_launches, _ = phase6()
     log(f"[6] done at {time.perf_counter() - t_start:.1f} s")
@@ -2278,6 +2646,13 @@ def main() -> int:
     k1tp_launches, _ = phase7()
     log(f"[7] done at {time.perf_counter() - t_start:.1f} s")
     check(k1tp_launches > 0, "the TP path launched no ring attention kernel")
+    launches8 = phase8(results5[("q8+int8+int4", 1)]["step_ms"])
+    log(f"[8] done at {time.perf_counter() - t_start:.1f} s")
+    launches = {k: launches3[k] + launches5[k] + launches8[k] for k in launches3}
+    log(f"[8] main-path launches (phases 3, 5 and 8; q8_mm counts the Q8 large-M "
+        f"route's calls): {json.dumps(launches)}")
+    for k in MAIN_PATH:
+        check(launches[k] > 0, f"the main path launched no {k} kernel")
     attention = "voxtral_tpu/ops/pallas_attention.py:204"
     kernels = [   # K1 at the offline pipeline's first decode step, in bf16
         _kernel_entry(rows, launches, "ring_gqa_attention", "ring_attention.cu",

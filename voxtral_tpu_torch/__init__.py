@@ -15,7 +15,11 @@ float and int8 rings; `csrc/ring_attention_enc.cu`: encoder regime, float,
 int8 and int4 rings), the W8A16 GEMV for Q8 weights (`csrc/w8a16.cu`) and
 the fused tied logits + greedy argmax (`csrc/logits_argmax.cu`). Weights
 are float or Q8 (`quant.Quantized`, from `quant.quantize_params` or a Q8
-file). The multi-stream serving step is `voxtral_tpu_torch.runtime.fleet`.
+file). The multi-stream serving step is `voxtral_tpu_torch.runtime.fleet`;
+the serving runtime over it is `voxtral_tpu_torch.runtime.FleetManager`
+(attach / feed / finish / poll / get, watchdogs, alt-tokens, the Tekken
+tokenizer of `voxtral_tpu_torch.tokenizer`), on one process. VoxStream and
+the CLI are not ported yet.
 """
 
 from __future__ import annotations

@@ -147,5 +147,8 @@ def q8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.shape[0] <= Q8_GEMV_MAX_ROWS:
-        return w8a16_gemv(x, q, s)
+        # K2 takes whole contiguous rows; a strided x (the conv stem's
+        # transposed output reaches the encoder's linears as a view at
+        # B = 1) is copied first
+        return w8a16_gemv(x.contiguous(), q, s)
     return _q8_mm(x, q, s)

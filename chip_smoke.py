@@ -114,6 +114,27 @@ Phases (any failure raises and the script exits non-zero):
      8c: token latency (bench.py's serving latency): B = 1, chunk 6 tokens,
      int8 rings, n_alt 2, max_steps_per_poll 1; p50/p95 per poll over 50
      feeds after 12 warm-up feeds, with pipeline_steps 1 and 2, logged.
+  9. The single-stream engine VoxStream, transcribe_audio and the CLI on
+     the card (runtime/stream.py, __init__.py, cli.py). 9a: full width,
+     2 + 2 layers, f32, one 3 s clip fed in 1 s pieces: the bucketed
+     backend, the fused backend on float rings and the fused backend on Q8
+     weights with int8 + int4 rings, each on cuda against cpu (quantized
+     rings: phase 4's top-2 gap rule); in float mode fused == bucketed ==
+     transcribe_tokens_batch, a mid-stream set_interval on fused == the
+     batch pipeline, and a mid-stream flush() on fused == bucketed given
+     the fused flush's 40 more samples of silence (the JAX package's
+     behaviour: it pads the skewed PCM buffer); the bucketed stream's mel is
+     the native binding, within 2e-4 of the numpy MelStream. 9b: full 4B
+     width and depth, bf16, seed-0 weights, one 12 s clip (a 16-bit WAV,
+     read back) through transcribe_audio (auto: fused on float rings), the
+     bucketed backend and the fused backend on phase 8b's Q8 tree with
+     int8 + int4 rings, each twice with identical tokens and its kernels'
+     launches checked (bucketed and auto: K1, K1-enc, K3; Q8: K1-int8,
+     K1-enc, K2, K3); logged: RTF, ms per generated token, peak memory and
+     the device busy share of two profiled 1 s feeds. 9c: `python3 -m
+     voxtral_tpu_torch.cli --random-init 0 --silent` as two subprocesses,
+     `-i` the WAV and `--stdin` with its bytes: exit 0, and stdout is 9b's
+     transcribe_audio text.
 The next-to-last lines are the card's name/power limit and one JSON object
 with each kernel's numbers; the last line is the run's result as JSON.
 Weights are random (seeded): tokens are meaningless but deterministic.
@@ -2283,7 +2304,7 @@ def _mgr_ids(mgr, sids):
     return {name: list(mgr.slots[sid].all_ids) for name, sid in sids.items()}
 
 
-def _mgr_vs_cpu(mode, what, got, ref, gaps):
+def _mgr_vs_cpu(mode, what, got, ref, gaps, tag="8a"):
     """cuda all_ids against the cpu reference's: equal, or on quantized rings
     first different where the cpu top-2 gap is below MGR_GAP (later tokens
     follow the flip, as in phase 4). Returns notes on the differences."""
@@ -2293,10 +2314,10 @@ def _mgr_vs_cpu(mode, what, got, ref, gaps):
         if g == r:
             continue
         i = next((k for k, (x, y) in enumerate(zip(g, r)) if x != y), min(len(g), len(r)))
-        check(mode != "float", f"[8a] float {what} {name}: cuda differs from cpu at "
+        check(mode != "float", f"[{tag}] float {what} {name}: cuda differs from cpu at "
                                f"token {i} of {len(r)}")
         gap = gaps[name][i] if i < len(gaps[name]) else float("inf")
-        check(gap < MGR_GAP, f"[8a] {mode} {what} {name}: cuda differs from cpu at "
+        check(gap < MGR_GAP, f"[{tag}] {mode} {what} {name}: cuda differs from cpu at "
                              f"token {i} with a cpu top-2 gap of {gap}")
         notes.append(f"{what} {name} first differs at token {i} (gap {gap:.3g})")
     return notes
@@ -2537,7 +2558,8 @@ def phase8c(total, params, cfg):
 
 def phase8(direct):
     """Phase 8: the serving runtime on the card. Returns its main-path
-    launches per kernel."""
+    launches per kernel, and 8b's Q8 tree with its config (phase 9 reuses
+    them)."""
     import torch
     total = dict.fromkeys(_counts(), 0)
     t0 = time.perf_counter()
@@ -2549,8 +2571,328 @@ def phase8(direct):
     t0 = time.perf_counter()
     phase8c(total, params, cfg)
     log(f"[8c] took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return total, params, cfg
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: VoxStream, transcribe_audio and the CLI
+# ---------------------------------------------------------------------------
+
+STREAM_PROFILED_FEEDS = (6, 7)     # first, last 1 s feed profiled in a repeat
+
+
+def _timed_stream():
+    """A VoxStream class that keeps its instances (`made`), the wall of each
+    feed (the card synchronised at its end) and the device busy ms of the
+    feeds `profiled` (first, last index), under one torch.profiler session
+    (kernel rows only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from voxtral_tpu_torch.runtime import VoxStream
+
+    class TimedStream(VoxStream):
+        made: list = []
+        profiled: tuple = ()
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.walls, self.busy_ms = [], 0.0
+            TimedStream.made.append(self)
+
+        def feed(self, samples):
+            k = len(self.walls)
+            t0 = time.perf_counter()
+            if self.profiled and k == self.profiled[0]:
+                self._prof = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+                self._prof.start()
+            super().feed(samples)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            if self.profiled and k == self.profiled[-1]:
+                self._prof.stop()
+                self.busy_ms = sum(r[0] for r in _device_rows(self._prof)) / 1e3
+            self.walls.append(time.perf_counter() - t0)
+    return TimedStream
+
+
+def _stream_run(cls, params, cfg, audio, device, flush_at=None, interval_at=None,
+                skew_pad=0, **sc):
+    """transcribe_audio's drive (1 s feeds, then finish) of a `cls` stream
+    with StreamConfig(**sc) on `device`. flush_at: the feed after which to
+    flush(), with `skew_pad` zero samples more fed to a bucketed stream's
+    mel there; interval_at: (feed index, seconds) for a set_interval after
+    that feed. Returns the stream; `flushed` is n_generated at the flush."""
+    from voxtral_tpu_torch.runtime import StreamConfig
+    s = cls(params, cfg, stream_cfg=StreamConfig(**sc), device=device)
+    sr = cfg.audio.sample_rate
+    s.flushed = None
+    for k, i in enumerate(range(0, len(audio), sr)):
+        s.feed(audio[i:i + sr])
+        if flush_at == k:
+            s.flush()
+            s.flushed = s.n_generated
+            if skew_pad:
+                s.mel.feed(np.zeros(skew_pad, np.float32))
+        if interval_at is not None and interval_at[0] == k:
+            s.set_interval(interval_at[1])
+    s.finish()
+    return s
+
+
+def phase9a():
+    """VoxStream at full width, 2 + 2 layers, f32 (TF32 off), one 3 s clip:
+    bucketed, fused on float rings and fused on Q8 weights with int8 + int4
+    rings, each on cuda against cpu (quantized rings: phase 4's top-2 gap
+    rule); in float mode fused == bucketed == transcribe_tokens_batch on
+    the card, a mid-stream set_interval on the fused backend == the batch
+    pipeline, and a mid-stream flush() on the fused backend == the bucketed
+    one given the fused flush's extra pcm_stream_skew samples of silence
+    (the JAX package's behaviour). The bucketed stream's mel must be the
+    native binding, within 2e-4 of the numpy MelStream."""
+    import torch
+    import voxtral_tpu_torch.runtime.stream as stream_mod
+    from voxtral_tpu_torch.audio.mel import MelStream
+    from voxtral_tpu_torch.audio.native import NativeMelStream, native_available
+    from voxtral_tpu_torch.models.pipeline import transcribe_tokens_batch
+    from voxtral_tpu_torch.quant import quantize_params
+    from voxtral_tpu_torch.runtime import VoxStream, pcm_stream_skew
+    from voxtral_tpu_torch.weights import random_params
+    t0 = time.perf_counter()
+    cfg = _reduced_config()
+    params = random_params(cfg, seed=0, device="cuda")
+    audio = synthetic_audio(3.0, seed=91)
+    check(native_available(), "[9a] the native mel library did not build")
+    recorder = _gap_recorder()
+
+    def on_cpu(p, backend, **sc):
+        """The cpu stream; a fused one through the gap recorder."""
+        if backend == "bucketed":
+            return _stream_run(VoxStream, p, cfg, audio, "cpu", backend=backend, **sc), None
+        made = stream_mod.FleetManager
+        stream_mod.FleetManager = lambda *a, n_alt=1, **kw: recorder(*a, **kw)
+        try:
+            s = _stream_run(VoxStream, p, cfg, audio, "cpu", backend=backend, **sc)
+        finally:
+            stream_mod.FleetManager = made
+        return s, s._mgr.gaps[0]
+
+    out, notes = {}, []
+    for mode, sc in (("float bucketed", dict(backend="bucketed")),
+                     ("float fused", dict(backend="fused")),
+                     ("q8+int8+int4 fused", dict(backend="fused", kv_dtype="int8",
+                                                 enc_kv_dtype="int4"))):
+        if mode.startswith("q8"):
+            params = quantize_params(params)
+        gpu = _stream_run(VoxStream, params, cfg, audio, "cuda", **sc)
+        check(gpu.backend == sc["backend"], f"[9a] {mode}: backend {gpu.backend}")
+        if sc["backend"] == "bucketed":
+            check(isinstance(gpu.mel, NativeMelStream),
+                  f"[9a] the bucketed stream's mel is {type(gpu.mel).__name__}")
+        params_cpu = _cpu_copy(params)
+        cpu, gaps = on_cpu(params_cpu, **sc)
+        del params_cpu
+        out[mode] = gpu.generated_ids
+        notes += _mgr_vs_cpu(mode.split()[0], mode, {"clip": gpu.generated_ids},
+                             {"clip": cpu.generated_ids}, {"clip": gaps or []}, tag="9a")
+        log(f"[9a] {mode}: {len(gpu.generated_ids)} tokens, cuda "
+            + ("== cpu" if gpu.generated_ids == cpu.generated_ids else "!= cpu (gap rule)"))
+        if mode == "float fused":
+            want, _ = transcribe_tokens_batch(params, cfg, audio, device="cuda")
+            check(out["float bucketed"] == gpu.generated_ids == want,
+                  "[9a] float: bucketed, fused and transcribe_tokens_batch differ")
+            # The fused flush pads the skewed PCM buffer to a token boundary:
+            # pcm_stream_skew (40) samples more silence than the bucketed
+            # flush, as in the JAX package (ROADMAP Queue 3). Bucketed with
+            # that silence fed to its mel must equal fused; without it the
+            # first difference is logged.
+            skew = pcm_stream_skew(cfg)
+            fb, fb0, ff = (
+                _stream_run(VoxStream, params, cfg, audio, "cuda", flush_at=1,
+                            backend=backend, interval=0.5, skew_pad=pad)
+                for backend, pad in (("bucketed", skew), ("bucketed", 0), ("fused", 0)))
+            check(fb.generated_ids == ff.generated_ids and fb.flushed > 0
+                  and ff.flushed > 0 and abs(fb.flushed - ff.flushed) <= 1,
+                  f"[9a] mid-stream flush: bucketed {fb.flushed} / fused {ff.flushed} "
+                  f"tokens at the flush; final streams equal: "
+                  f"{fb.generated_ids == ff.generated_ids}")
+            diff = next((i for i, (x, y) in enumerate(zip(fb0.generated_ids, ff.generated_ids))
+                         if x != y), None)
+            fi = _stream_run(VoxStream, params, cfg, audio, "cuda", interval_at=(1, 2.0),
+                             backend="fused", interval=0.5)
+            check(fi.generated_ids == want, "[9a] fused set_interval mid-stream != batch")
+            notes.append(f"flush at 2 s: bucketed {fb.flushed}, fused {ff.flushed} tokens, "
+                         f"fused == bucketed + {skew} samples of silence over "
+                         f"{len(ff.generated_ids)} tokens (without them first different at "
+                         f"token {diff}); set_interval 0.5 -> 2.0 s == batch over "
+                         f"{len(want)} tokens")
+    # the native frames against numpy's on the same feeds
+    left = cfg.streaming.n_left_pad_tokens * cfg.audio.raw_audio_per_token
+    mels = []
+    for cls in (NativeMelStream, MelStream):
+        m = cls(left_pad_samples=left, cfg=cfg.audio)
+        for i in range(0, len(audio), 16000):
+            m.feed(audio[i:i + 16000])
+        m.finish()
+        mels.append(m.frames().copy())
+    err = float(np.abs(mels[0] - mels[1]).max())
+    check(mels[0].shape == mels[1].shape and err <= 2e-4,
+          f"[9a] native mel {mels[0].shape} vs numpy {mels[1].shape}, max diff {err}")
     del params
     torch.cuda.empty_cache()
+    log(f"[9a] {json.dumps(dict(tokens={k: len(v) for k, v in out.items()}, notes=notes, native_mel_max_abs_diff=err, seconds=time.perf_counter() - t0))}")
+
+
+def phase9b(total, q8_params, cfg):
+    """VoxStream at full 4B width and depth, bf16, seed-0 weights, one 12 s
+    clip (written as a 16-bit WAV and read back: the CLI's input) through
+    transcribe_audio (auto: fused on float rings), the bucketed backend and
+    the fused backend on phase 8b's Q8 tree with int8 + int4 rings; each
+    twice with identical tokens, the second run profiling 1 s feeds 6-7.
+    Adds the launches to `total`. Returns the WAV path's directory, the
+    path and transcribe_audio's text."""
+    import os
+    import tempfile
+
+    import torch
+    import voxtral_tpu_torch
+    import voxtral_tpu_torch.runtime as runtime
+    from voxtral_tpu_torch.audio import load_wav
+    from voxtral_tpu_torch.weights import random_params
+    t_start = time.perf_counter()
+    params = random_params(cfg, seed=0, device="cuda")
+    tmp = tempfile.TemporaryDirectory()
+    path = os.path.join(tmp.name, "clip.wav")
+    pcm = (np.clip(synthetic_audio(12.0, seed=92), -1, 1) * 32767).astype("<i2").tobytes()
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + (36 + len(pcm)).to_bytes(4, "little") + b"WAVEfmt "
+                + (16).to_bytes(4, "little") + (1).to_bytes(2, "little")
+                + (1).to_bytes(2, "little") + (16000).to_bytes(4, "little")
+                + (32000).to_bytes(4, "little") + (2).to_bytes(2, "little")
+                + (16).to_bytes(2, "little") + b"data" + len(pcm).to_bytes(4, "little")
+                + pcm)
+    audio = load_wav(path)
+    audio_s = audio.size / cfg.audio.sample_rate
+    timed = _timed_stream()
+    want = {"auto": ("ring_gqa_attention", "ring_gqa_attention_enc", "fused_logits_argmax"),
+            "bucketed": ("ring_gqa_attention", "ring_gqa_attention_enc",
+                         "fused_logits_argmax"),
+            "fused q8+int8+int4": ("ring_gqa_attention_int8", "ring_gqa_attention_enc",
+                                   "w8a16_gemv", "fused_logits_argmax")}
+    text = None
+    results = {}
+    for backend in want:
+        ids = []
+        for rep in range(2):
+            timed.profiled = STREAM_PROFILED_FEEDS if rep else ()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()                          # a main-path run starts
+            t0 = time.perf_counter()
+            if backend == "auto":
+                made = runtime.VoxStream
+                runtime.VoxStream = timed
+                try:
+                    got = voxtral_tpu_torch.transcribe_audio((params, cfg, None), audio)
+                finally:
+                    runtime.VoxStream = made
+                s = timed.made[-1]
+                check(s.backend == "fused", f"[9b] auto took {s.backend} on the card")
+                check(text is None or got == text, "[9b] transcribe_audio text differs")
+                text = got
+            elif backend == "bucketed":
+                s = _stream_run(timed, params, cfg, audio, "cuda", backend="bucketed")
+            else:
+                s = _stream_run(timed, q8_params, cfg, audio, "cuda", backend="fused",
+                                kv_dtype="int8", enc_kv_dtype="int4")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got_counts = _counts()                   # ... and ends
+            for k, v in got_counts.items():
+                total[k] += v
+            check(all(got_counts[k] > 0 for k in want[backend]),
+                  f"[9b] {backend} run {rep}: launches {got_counts}")
+            check(all(0 <= t < cfg.decoder.vocab_size for t in s.generated_ids),
+                  f"[9b] {backend}: token out of range")
+            ids.append(s.generated_ids)
+            if rep == 0:
+                walls0 = s.walls
+                r = dict(backend=backend, audio_s=audio_s, wall_s=wall,
+                         rtf=wall / audio_s, generated=s.n_generated,
+                         ms_per_token=1e3 * wall / max(s.n_generated, 1),
+                         feeds=len(s.walls), feed_ms_max=1e3 * max(s.walls),
+                         stats=s.stats(), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches={k: got_counts[k] for k in want[backend]})
+            else:
+                first, last = STREAM_PROFILED_FEEDS
+                prof_wall = sum(walls0[first:last + 1])
+                r.update(profiled_feeds=list(STREAM_PROFILED_FEEDS),
+                         busy_ms=s.busy_ms, busy_share=s.busy_ms / (1e3 * prof_wall),
+                         profiled_feeds_wall_ms=1e3 * prof_wall)
+        check(ids[0] == ids[1], f"[9b] {backend}: tokens differ between the two runs")
+        check(len(ids[0]) > 100, f"[9b] {backend}: only {len(ids[0])} tokens")
+        results[backend] = ids[0]
+        log(f"[9b] {json.dumps(r)}")
+    check(bool(text), "[9b] transcribe_audio returned no text")
+    del params
+    torch.cuda.empty_cache()
+    # bf16: the two backends' products see other row counts, so their sums
+    # round apart; logged, not gated (9a holds them equal in f32)
+    a, b = results["auto"], results["bucketed"]
+    first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+    log(f"[9b] bf16 fused float vs bucketed: {len(a)} / {len(b)} tokens, equal up to "
+        f"token {first}; Q8 + int8 + int4 {len(results['fused q8+int8+int4'])} tokens; "
+        f"took {time.perf_counter() - t_start:.1f} s")
+    return tmp, path, text
+
+
+def phase9c(path, text):
+    """The CLI as two subprocesses on the card, started together: `-i` the
+    WAV and `--stdin` with its bytes, seed-0 random 4B weights, --silent.
+    Both exit 0 and print transcribe_audio's text of phase 9b (same
+    weights, interval and delay) and a newline."""
+    import os
+    t0 = time.perf_counter()
+    base = [sys.executable, "-m", "voxtral_tpu_torch.cli", "--random-init", "0",
+            "--silent"]
+    with open(path, "rb") as f:
+        data = f.read()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = {"file": subprocess.Popen(base + ["-i", path], cwd=here,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE),
+             "stdin": subprocess.Popen(base + ["--stdin"], cwd=here, stdin=subprocess.PIPE,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE)}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(data if name == "stdin" else None, timeout=300)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, p in procs.items():
+        check(p.returncode == 0, f"[9c] CLI {name} exit {p.returncode}: "
+                                 f"{outs[name][1].decode(errors='replace')[-2000:]}")
+    check(outs["file"][0].decode() == text + "\n",
+          f"[9c] CLI -i stdout ({len(outs['file'][0])} bytes) != phase 9b's "
+          f"transcribe_audio text ({len(text)} chars)")
+    check(outs["stdin"][0] == outs["file"][0], "[9c] CLI --stdin stdout != -i stdout")
+    log(f"[9c] CLI -i and --stdin: exit 0, stdout == transcribe_audio's text "
+        f"({len(text)} chars); took {time.perf_counter() - t0:.1f} s")
+
+
+def phase9(q8_params, cfg):
+    """Phase 9: VoxStream, transcribe_audio and the CLI on the card. Returns
+    9b's main-path launches per kernel."""
+    total = dict.fromkeys(_counts(), 0)
+    t0 = time.perf_counter()
+    phase9a()
+    log(f"[9a] took {time.perf_counter() - t0:.1f} s")
+    tmp, path, text = phase9b(total, q8_params, cfg)
+    with tmp:
+        phase9c(path, text)
     return total
 
 
@@ -2594,8 +2936,8 @@ def ceiling_shares(rows):
     return out
 
 
-# What each path must launch: the serving path (phases 3, 5 and 8; q8_mm is
-# the Q8 large-M route, not a kernel) and the tools path (phase 6).
+# What each path must launch: the serving path (phases 3, 5, 8 and 9b; q8_mm
+# is the Q8 large-M route, not a kernel) and the tools path (phase 6).
 MAIN_PATH = ("ring_gqa_attention", "ring_gqa_attention_int8", "ring_gqa_attention_enc",
              "w8a16_gemv", "fused_logits_argmax", "q8_mm")
 TOOLS_PATH = ("wread", "pure_stream", "bf16_matmul", "rd", "w8a16_gemv",
@@ -2646,10 +2988,15 @@ def main() -> int:
     k1tp_launches, _ = phase7()
     log(f"[7] done at {time.perf_counter() - t_start:.1f} s")
     check(k1tp_launches > 0, "the TP path launched no ring attention kernel")
-    launches8 = phase8(results5[("q8+int8+int4", 1)]["step_ms"])
+    launches8, q8_params, cfg4b = phase8(results5[("q8+int8+int4", 1)]["step_ms"])
     log(f"[8] done at {time.perf_counter() - t_start:.1f} s")
-    launches = {k: launches3[k] + launches5[k] + launches8[k] for k in launches3}
-    log(f"[8] main-path launches (phases 3, 5 and 8; q8_mm counts the Q8 large-M "
+    launches9 = phase9(q8_params, cfg4b)
+    del q8_params
+    torch.cuda.empty_cache()
+    log(f"[9] done at {time.perf_counter() - t_start:.1f} s")
+    launches = {k: launches3[k] + launches5[k] + launches8[k] + launches9[k]
+                for k in launches3}
+    log(f"[9] main-path launches (phases 3, 5, 8 and 9b; q8_mm counts the Q8 large-M "
         f"route's calls): {json.dumps(launches)}")
     for k in MAIN_PATH:
         check(launches[k] > 0, f"the main path launched no {k} kernel")

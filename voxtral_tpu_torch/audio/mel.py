@@ -1,14 +1,20 @@
 """Log-mel spectrogram frontend (Slaney filters, Whisper-style framing), host
 numpy version.
 
-A copy of the batch part of `voxtral_tpu/audio/mel.py` (the port keeps its
-own: the JAX module imports the JAX package's config). Semantics match the
-ground-truth pipeline (python_simple_implementation.py:102-157):
+A copy of the numpy part of `voxtral_tpu/audio/mel.py`: the batch log-mel
+and the incremental `MelStream` (the port keeps its own: the JAX module
+imports the JAX package's config). Semantics match the ground-truth
+pipeline (python_simple_implementation.py:102-157) and the C incremental
+context (voxtral_audio.c:400-662):
 
 - STFT: periodic Hann window 400, hop 160, center=True with reflect padding,
   onesided 201 bins, power spectrum, LAST FRAME DROPPED.
 - mel = SlaneyFilters.T @ power; log10 clamped to >= 1e-10; floored at
   (global_log_mel_max - 8); then (x + 4) / 4.
+- Streaming: the sample buffer starts with 200 + left_pad zeros (reflect of
+  silence is silence); frames are emitted as soon as their 400-sample window
+  fits; finish() appends a 200-sample right reflection and drops the final
+  frame.
 """
 
 from __future__ import annotations
@@ -132,3 +138,100 @@ def batch_log_mel(audio: np.ndarray, cfg: AudioConfig = AudioConfig()) -> np.nda
     log_spec = np.log10(np.maximum(mel, 1e-10))
     log_spec = np.maximum(log_spec, cfg.log_mel_max - 8.0)
     return (((log_spec + 4.0) / 4.0).T).astype(np.float32)          # [128, F]
+
+
+# ---------------------------------------------------------------------------
+# Incremental mel stream (voxtral_audio.c:400-662 semantics, vectorized)
+# ---------------------------------------------------------------------------
+
+class MelStream:
+    """Incremental log-mel over a growing (compacted) sample buffer.
+
+    Frames are identical to `batch_log_mel` of the eventual full signal:
+    frame t covers padded samples [t*hop, t*hop + window). The buffer starts
+    with 200 + `left_pad_samples` zeros; `finish()` appends the 200-sample
+    right reflection and drops the final frame.
+    """
+
+    def __init__(self, left_pad_samples: int, cfg: AudioConfig = AudioConfig()):
+        self.cfg = cfg
+        self._window = hann_window(cfg.window_size)
+        self._cos, self._sin = dft_matrices(cfg)
+        self._filters = mel_filters(cfg)
+        self.left_pad = cfg.window_size // 2 + left_pad_samples
+        self._samples = np.zeros(self.left_pad, dtype=np.float32)
+        self.sample_offset = 0          # global index of _samples[0]
+        self.n_total_samples = self.left_pad
+        self._mel = np.zeros((0, cfg.mel_bins), dtype=np.float32)
+        self.frame_offset = 0           # global frame index of _mel[0]
+        self.finished = False
+
+    @property
+    def n_frames(self) -> int:
+        return self._mel.shape[0]
+
+    def frames(self) -> np.ndarray:
+        """Currently buffered frames, [n, mel_bins]; global index of row 0 is
+        frame_offset."""
+        return self._mel
+
+    def feed(self, samples: np.ndarray) -> int:
+        """Append samples; returns the number of new frames."""
+        if self.finished:
+            raise RuntimeError("MelStream already finished")
+        samples = np.asarray(samples, dtype=np.float32).reshape(-1)
+        if samples.size:
+            self._samples = np.concatenate([self._samples, samples])
+            self.n_total_samples += samples.size
+        return self._compute_available()
+
+    def finish(self) -> int:
+        if self.finished:
+            return self.n_frames
+        # Right reflect: 200 samples mirrored around the last sample
+        # (src = end - 2 - i, voxtral_audio.c:615-623).
+        half = self.cfg.window_size // 2
+        tail = self._samples[-half - 1:-1][::-1].copy()
+        self._samples = np.concatenate([self._samples, tail])
+        self.n_total_samples += half
+        self._compute_available()
+        if self.n_frames > 0:
+            self._mel = self._mel[:-1]
+        self.finished = True
+        return self.n_frames
+
+    def discard_before(self, global_frame: int) -> None:
+        drop = min(max(global_frame - self.frame_offset, 0), self.n_frames)
+        if drop > 0:
+            self._mel = self._mel[drop:]
+            self.frame_offset += drop
+
+    def _compute_available(self) -> int:
+        cfg = self.cfg
+        next_frame = self.frame_offset + self.n_frames
+        # frame t needs samples [t*hop, t*hop+window) (global indices)
+        last_fit = (self.n_total_samples - cfg.window_size) // cfg.hop_length
+        n_new = last_fit + 1 - next_frame
+        if n_new <= 0:
+            return 0
+        starts = (np.arange(next_frame, next_frame + n_new) * cfg.hop_length
+                  - self.sample_offset)
+        idx = starts[:, None] + np.arange(cfg.window_size)[None, :]
+        frames = self._samples[idx] * self._window[None, :]
+        re = frames @ self._cos
+        im = frames @ self._sin
+        power = re * re + im * im
+        mel = power @ self._filters
+        log_spec = np.log10(np.maximum(mel, 1e-10))
+        log_spec = np.maximum(log_spec, cfg.log_mel_max - 8.0)
+        new = ((log_spec + 4.0) / 4.0).astype(np.float32)
+        self._mel = np.concatenate([self._mel, new], axis=0)
+        self._compact_samples()
+        return n_new
+
+    def _compact_samples(self) -> None:
+        needed_from = (self.frame_offset + self.n_frames) * self.cfg.hop_length
+        discard = needed_from - self.sample_offset
+        if discard > 0:
+            self._samples = self._samples[discard:]
+            self.sample_offset += discard

@@ -404,3 +404,34 @@ def random_params(cfg: VoxtralConfig, seed: int = 0, scale: float = 0.02,
         return t.to(node.dtype)
 
     return walk(param_shapes(cfg))
+
+
+def random_params_host(cfg: VoxtralConfig, seed: int = 0, scale: float = 0.02,
+                       device="cuda") -> dict:
+    """The JAX package's host random tree (`random_params` in
+    voxtral_tpu/weights.py): the same numpy RandomState draws in the same
+    order, each f32 draw cast to its leaf's dtype (round to nearest even,
+    as jnp.asarray does), moved to `device`. Norm weights are
+    1 + N(0, scale), every other leaf N(0, scale). Drawn on the host, so it
+    is meant for small configurations (`tiny_config`); full-width random
+    weights come from `random_params`."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+
+    def draw(node, key=None):
+        if isinstance(node, dict):
+            return {k: draw(v, k) for k, v in node.items()}
+        if not isinstance(node, Leaf):
+            return tuple(draw(v) for v in node)
+        t = torch.from_numpy((rng.randn(*node.shape) * scale).astype(np.float32))
+        if key in _NORM_KEYS:
+            t = 1.0 + t
+        return t.to(dev, node.dtype)
+
+    shapes = param_shapes(cfg)
+    # the JAX tree draws both layer stacks first, then the other leaves in
+    # tree order
+    layers = {part: draw(shapes[part]["layers"]) for part in ("encoder", "decoder")}
+    return {part: {k: layers[part] if k == "layers" else draw(v, k)
+                   for k, v in node.items()}
+            for part, node in shapes.items()}

@@ -135,6 +135,27 @@ Phases (any failure raises and the script exits non-zero):
      voxtral_tpu_torch.cli --random-init 0 --silent` as two subprocesses,
      `-i` the WAV and `--stdin` with its bytes: exit 0, and stdout is 9b's
      transcribe_audio text.
+ 10. Multi-process data parallelism through FleetManager(tp=), ranks
+     spawned by parallel.launch.run_ranks on cuda:0 (gloo), each building
+     the seed-0 weights on the card. 10a: full width, 2 + 2 layers, f32,
+     chunk 8 tokens, dec_ring 256, float rings and Q8 weights with int8 +
+     int4 rings: data 2 x model 1 (global B 4) runs the JAX multihost
+     worker's basic flow and its asymmetric churn (rank 0 churns a slot
+     while rank 1 keeps feeding) with pipeline_steps 1 and 2; data 2 x
+     model 2 (global B 2, four ranks) runs tests/test_manager.py's meshed
+     flow and slot churn. Every stream against one process on the card
+     (float rings: equal; quantized: phase 4's gap rule); the rows
+     partitioned disjointly and completely, equal step counts on every
+     rank, and each rank launches its decode ring kernel, K1-enc, K3 and,
+     on Q8 weights, K2 (the model-2 ranks' ring launches are K1-tp's).
+     10b: full 4B width and depth, bf16, 8b's Q8 + int8 + int4 serving
+     default, data 2 x model 1, 8 streams a rank: 8b's 16 clips on 8b's
+     schedule (the four late ones on rank 1), with pipeline_steps 1 and 2;
+     the two runs' tokens identical, each rank's tokens at least
+     TP_BF16_AGREE equal to 8b's run 0 (each stream's share logged), equal
+     step counts; logged beside 8b's one
+     process: aggregate audio-s/s, per-rank steps, step ms, host share and
+     peak memory (no claim: the two ranks time-slice one card).
 The next-to-last lines are the card's name/power limit and one JSON object
 with each kernel's numbers; the last line is the run's result as JSON.
 Weights are random (seeded): tokens are meaningless but deterministic.
@@ -2274,15 +2295,17 @@ def _mgr_serve(mgr, clips, late=(), poll=None):
     """Serve `clips` ({name: audio}) through `mgr`: attach every clip not in
     `late`, feed 1 s pieces round-robin with a poll after each round, attach
     the `late` clips after the first poll, finish each clip once fed, then
-    poll until every stream has finished. `poll(mgr, round)` stands in for
-    mgr.poll(). Returns ({name: sid}, [(steps, poll wall s)])."""
+    poll until every stream has finished (on every rank, for a manager with
+    `tp`: the exit is agreed). `poll(mgr, round)` stands in for mgr.poll().
+    Returns ({name: sid}, [(steps, poll wall s)])."""
+    from voxtral_tpu_torch.parallel import any_across_hosts
     poll = poll or (lambda m, _: m.poll())
     sids = {name: mgr.attach() for name in clips if name not in late}
     pos = dict.fromkeys(clips, 0)
     walls = []
     for rnd in range(2000):
-        if rnd and all(mgr.is_finished(sid) for sid in sids.values()) \
-                and len(sids) == len(clips):
+        done = all(mgr.is_finished(sid) for sid in sids.values()) and len(sids) == len(clips)
+        if rnd and not any_across_hosts([not done])[0]:
             break
         for name, sid in sids.items():
             a = clips[name]
@@ -2304,21 +2327,22 @@ def _mgr_ids(mgr, sids):
     return {name: list(mgr.slots[sid].all_ids) for name, sid in sids.items()}
 
 
-def _mgr_vs_cpu(mode, what, got, ref, gaps, tag="8a"):
-    """cuda all_ids against the cpu reference's: equal, or on quantized rings
-    first different where the cpu top-2 gap is below MGR_GAP (later tokens
-    follow the flip, as in phase 4). Returns notes on the differences."""
+def _mgr_vs_cpu(mode, what, got, ref, gaps, tag="8a", against="cpu"):
+    """cuda all_ids against the reference's (the cpu's, or `against`):
+    equal, or on quantized rings first different where the reference's
+    top-2 gap is below MGR_GAP (later tokens follow the flip, as in phase
+    4). Returns notes on the differences."""
     notes = []
     for name, r in ref.items():
         g = got[name]
         if g == r:
             continue
         i = next((k for k, (x, y) in enumerate(zip(g, r)) if x != y), min(len(g), len(r)))
-        check(mode != "float", f"[{tag}] float {what} {name}: cuda differs from cpu at "
-                               f"token {i} of {len(r)}")
+        check(mode != "float", f"[{tag}] float {what} {name}: cuda differs from {against} "
+                               f"at token {i} of {len(r)}")
         gap = gaps[name][i] if i < len(gaps[name]) else float("inf")
-        check(gap < MGR_GAP, f"[{tag}] {mode} {what} {name}: cuda differs from cpu at "
-                             f"token {i} with a cpu top-2 gap of {gap}")
+        check(gap < MGR_GAP, f"[{tag}] {mode} {what} {name}: cuda differs from {against} "
+                             f"at token {i} with a top-2 gap of {gap} there")
         notes.append(f"{what} {name} first differs at token {i} (gap {gap:.3g})")
     return notes
 
@@ -2480,7 +2504,7 @@ def phase8b(total, direct):
         f"same poll's unprofiled wall {1e3 * wall0:.2f} ms in run 0 (share "
         f"{profiled['busy_ms'] / (1e3 * wall0):.4f}); phase 5's direct step wall, "
         f"median {np.median(direct):.2f} ms")
-    return params, cfg, results
+    return params, cfg, results, ids[0]
 
 
 def _profiled_poll(mgr):
@@ -2558,21 +2582,21 @@ def phase8c(total, params, cfg):
 
 def phase8(direct):
     """Phase 8: the serving runtime on the card. Returns its main-path
-    launches per kernel, and 8b's Q8 tree with its config (phase 9 reuses
-    them)."""
+    launches per kernel, 8b's Q8 tree with its config (phase 9 reuses
+    them), and 8b's run 0: its result and tokens (phase 10b's reference)."""
     import torch
     total = dict.fromkeys(_counts(), 0)
     t0 = time.perf_counter()
     phase8a(total)
     log(f"[8a] took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    params, cfg, _ = phase8b(total, direct)
+    params, cfg, results, ids = phase8b(total, direct)
     log(f"[8b] took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase8c(total, params, cfg)
     log(f"[8c] took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    return total, params, cfg
+    return total, params, cfg, (results[0], ids)
 
 
 # ---------------------------------------------------------------------------
@@ -2896,6 +2920,459 @@ def phase9(q8_params, cfg):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: multi-process data parallelism through FleetManager(tp=)
+# ---------------------------------------------------------------------------
+
+DP_BATCH, DP_CHUNK, DP_RING, DP_REBORN = 4, 8, 256, 9
+DP_TIMEOUT = 600.0
+DP_RING_KERNELS = ("ring_gqa_attention", "ring_gqa_attention_int8", "ring_gqa_attention_enc")
+# layout: (n_data, n_model, flows)
+DP_LAYOUTS = {"data 2 x model 1": (2, 1, ("basic", "churn 1", "churn 2")),
+              "data 2 x model 2": (2, 2, ("meshed", "mesh churn"))}
+
+
+def _dp_clips():
+    """Phase 10a's clips, synthetic speech at the flows' lengths. "worker":
+    tests/multihost_worker.py's, 2 s for global row g, 2 s more live audio
+    (key 1000 + g) for rows 1-3, 2 s for the reborn stream; "mesh":
+    tests/test_manager.py:248's two streams (3 s, 2 s) and :632's three
+    (2, 3 and 2 s)."""
+    worker = {g: synthetic_audio(2.0, 400 + g) for g in range(DP_BATCH)}
+    worker.update({1000 + g: synthetic_audio(2.0, 1400 + g) for g in range(1, DP_BATCH)})
+    worker[DP_REBORN] = synthetic_audio(2.0, 400 + DP_REBORN)
+    mesh = {name: synthetic_audio(sec, seed) for name, sec, seed in
+            (("a", 3.0, 403), ("b", 2.0, 404), ("c0", 2.0, 431), ("c1", 3.0, 432),
+             ("c2", 2.0, 433))}
+    return dict(worker=worker, mesh=mesh)
+
+
+def _dp_take(mgr, sid):
+    """(all_ids, top-2 gap of each) of a slot; the gaps are None unless the
+    manager records them (_gap_recorder)."""
+    gaps = getattr(mgr, "gaps", None)
+    return list(mgr.slots[sid].all_ids), None if gaps is None else list(gaps[sid])
+
+
+def _dp_basic(mgr, clips):
+    """tests/multihost_worker.py's basic flow: each local row's clip (global
+    row g: clips[g]) fed whole and finished, then polls until every stream
+    on every rank has finished. {global row: _dp_take}."""
+    from voxtral_tpu_torch.parallel import any_across_hosts
+    sids = [mgr.attach() for _ in range(mgr.local_batch)]
+    for sid in sids:
+        mgr.feed(sid, clips[mgr.row_lo + sid])
+        mgr.finish(sid)
+    while True:
+        mgr.poll()
+        if not any_across_hosts([not all(mgr.is_finished(s) for s in sids)])[0]:
+            break
+    return {mgr.row_lo + sid: _dp_take(mgr, sid) for sid in sids}
+
+
+def _dp_churn(mgr, clips):
+    """tests/multihost_worker.py's churn_flow: the rank holding global row
+    0 finishes it, drains it, detaches it and attaches the reborn stream
+    into the freed slot, while every other row keeps feeding 0.5 s of live
+    audio a poll; every loop exit agreed over the ranks. {0, DP_REBORN or
+    global row: _dp_take}."""
+    from voxtral_tpu_torch.parallel import any_across_hosts
+    sids = [mgr.attach() for _ in range(mgr.local_batch)]
+    extra = {}
+    for sid in sids:
+        g = mgr.row_lo + sid
+        mgr.feed(sid, clips[g])
+        if g == 0:
+            mgr.finish(sid)
+        else:
+            extra[sid] = clips[1000 + g]
+
+    def feed_tick():
+        for sid in list(extra):
+            a, extra[sid] = extra[sid][:8000], extra[sid][8000:]
+            mgr.feed(sid, a)
+            if not len(extra[sid]):
+                mgr.finish(sid)
+                del extra[sid]
+
+    while True:
+        feed_tick()
+        mgr.poll()
+        if not any_across_hosts([mgr.row_lo == 0 and not mgr.is_finished(0)])[0]:
+            break
+    out = {}
+    if mgr.row_lo == 0:
+        out[0] = _dp_take(mgr, 0)
+        mgr.detach(0)
+        check(mgr.attach() == 0, "[10a] churn: the freed slot was not reused")
+        mgr.feed(0, clips[DP_REBORN])
+        mgr.finish(0)
+    while True:
+        feed_tick()
+        mgr.poll()
+        pending = bool(extra) or not all(mgr.is_finished(s) for s in sids
+                                         if mgr.slots[s].active)
+        if not any_across_hosts([pending])[0]:
+            break
+    for sid in sids:
+        g = mgr.row_lo + sid
+        out[DP_REBORN if g == 0 else g] = _dp_take(mgr, sid)
+    return out
+
+
+def _dp_serve(mgr, feeds):
+    """tests/test_manager.py:_serve with agreed loops: feeds {sid: audio}
+    in 1 s pieces with a poll after each round while any rank has audio
+    left, then finish and drain. {sid: _dp_take}."""
+    from voxtral_tpu_torch.parallel import any_across_hosts
+    pos = dict.fromkeys(feeds, 0)
+    while any_across_hosts([any(pos[s] < len(a) for s, a in feeds.items())])[0]:
+        for sid, a in feeds.items():
+            if pos[sid] < len(a):
+                mgr.feed(sid, a[pos[sid]:pos[sid] + 16000])
+                pos[sid] += 16000
+        mgr.poll()
+    for sid in feeds:
+        mgr.finish(sid)
+    for _ in range(64):
+        if not any_across_hosts([not all(mgr.is_finished(s) for s in feeds)])[0]:
+            break
+        mgr.poll()
+    return {sid: _dp_take(mgr, sid) for sid in feeds}
+
+
+def _dp_meshed(mgr, clips):
+    """tests/test_manager.py:248's flow: global row 0 serves clip "a", row
+    1 clip "b". {global row: _dp_take}."""
+    rows = {mgr.attach(): row for row in range(mgr.row_lo, mgr.row_hi)}
+    got = _dp_serve(mgr, {sid: clips["ab"[row]] for sid, row in rows.items()})
+    return {rows[sid]: v for sid, v in got.items()}
+
+
+def _dp_mesh_churn(mgr, clips):
+    """tests/test_manager.py:632's slot churn: rows 0 (clip c0) and 1 (c1)
+    take 1 s pieces; row 0 finishes, drains and is detached, and its slot
+    serves c2 while row 1 goes on with the rest of c1. {"c2" / "c1":
+    _dp_take} of the rows held here."""
+    from voxtral_tpu_torch.parallel import any_across_hosts
+    a0, a1, a2 = clips["c0"], clips["c1"], clips["c2"]
+    streams = {row: mgr.attach() for row in range(mgr.row_lo, mgr.row_hi)}
+    for i in range(0, len(a0), 16000):
+        for row, sid in streams.items():
+            mgr.feed(sid, (a0, a1)[row][i:i + 16000])
+        mgr.poll()
+    fed1 = (len(a0) // 16000) * 16000
+    if 0 in streams:
+        mgr.finish(streams[0])
+    for _ in range(64):
+        if not any_across_hosts([0 in streams and not mgr.is_finished(streams[0])])[0]:
+            break
+        mgr.poll()
+    feeds, names = {}, {}
+    if 0 in streams:
+        check(mgr.is_finished(streams[0]), "[10a] mesh churn: row 0 never finished")
+        mgr.detach(streams[0])
+        check(mgr.attach() == streams[0], "[10a] mesh churn: the freed slot was not reused")
+        feeds[streams[0]], names[streams[0]] = a2, "c2"
+    if 1 in streams:
+        feeds[streams[1]], names[streams[1]] = a1[fed1:], "c1"
+    return {names[sid]: v for sid, v in _dp_serve(mgr, feeds).items()}
+
+
+# flow: (function, clips, pipeline_steps, global batch)
+DP_FLOWS = {"basic": (_dp_basic, "worker", 1, DP_BATCH),
+            "churn 1": (_dp_churn, "worker", 1, DP_BATCH),
+            "churn 2": (_dp_churn, "worker", 2, DP_BATCH),
+            "meshed": (_dp_meshed, "mesh", 1, 2),
+            "mesh churn": (_dp_mesh_churn, "mesh", 1, 2)}
+
+
+def _dp_rank(rank, world, n_data, flows, clips):
+    """One rank of phase 10a: gloo over cuda:0, an (n_data, world / n_data)
+    mesh, the seed-0 weights built on the card and sliced by the manager,
+    each of MGR_MODES through `flows` with its launch counts (every count
+    0 just before the mode's flows, read just after)."""
+    import torch
+    from voxtral_tpu_torch.parallel import global_mesh
+    from voxtral_tpu_torch.quant import quantize_params
+    from voxtral_tpu_torch.runtime import FleetManager
+    from voxtral_tpu_torch.weights import random_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = global_mesh(n_data, world // n_data)
+    cfg = _reduced_config()
+    params = random_params(cfg, seed=0, device="cuda")
+    out = dict(data=tp.data_rank, model=tp.model_rank)
+    for mode, rings in MGR_MODES.items():
+        if mode.startswith("q8"):
+            params = quantize_params(params)
+        _reset_counts()                          # this rank's DP path starts here
+        res = {}
+        for flow in flows:
+            fn, kind, depth, batch = DP_FLOWS[flow]
+            mgr = FleetManager(params, cfg, batch, chunk_tokens=DP_CHUNK, dec_ring=DP_RING,
+                               pipeline_steps=depth, tp=tp, **rings)
+            res[flow] = dict(streams=fn(mgr, clips[kind]), steps=mgr.steps,
+                             rows=(mgr.row_lo, mgr.row_hi))
+        out[mode] = dict(flows=res, launches=_counts())   # ... and ends
+    return out
+
+
+def _dp_solo_clips(worker):
+    """Each stream of the churn flow as one clip: what it hears in all."""
+    solo = {0: worker[0], DP_REBORN: worker[DP_REBORN]}
+    solo.update({g: np.concatenate([worker[g], worker[1000 + g]]) for g in range(1, DP_BATCH)})
+    return solo
+
+
+def _dp_reference(clips):
+    """One process on cuda, every flow of phase 10a in each of MGR_MODES
+    (quantized: through _gap_recorder, for the gap rule). The churn flows'
+    reference is each stream alone (B = 1). {mode: {flow: ({name:
+    (all_ids, gaps)}, steps)}}."""
+    import torch
+    from voxtral_tpu_torch.quant import quantize_params
+    from voxtral_tpu_torch.runtime import FleetManager
+    from voxtral_tpu_torch.weights import random_params
+    cfg = _reduced_config()
+    params = random_params(cfg, seed=0, device="cuda")
+    recorder = _gap_recorder()
+    ref = {}
+    for mode, rings in MGR_MODES.items():
+        if mode.startswith("q8"):
+            params = quantize_params(params)
+        cls = FleetManager if mode == "float" else recorder
+
+        def one(fn, kind_clips, batch):
+            mgr = cls(params, cfg, batch, chunk_tokens=DP_CHUNK, dec_ring=DP_RING, **rings)
+            return fn(mgr, kind_clips), mgr.steps
+
+        solo = {name: one(_dp_basic, {0: a}, 1)[0][0]
+                for name, a in _dp_solo_clips(clips["worker"]).items()}
+        ref[mode] = {"basic": one(_dp_basic, clips["worker"], DP_BATCH),
+                     "churn": (solo, None),
+                     "meshed": one(_dp_meshed, clips["mesh"], 2),
+                     "mesh churn": one(_dp_mesh_churn, clips["mesh"], 2)}
+    del params
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _dp_gather(layout, mode, flow, ranks):
+    """The ranks' results of one flow: checks the rows (data ranks
+    disjoint and complete, model ranks of a data index alike), the step
+    counts (equal on every rank) and that the model ranks of a data index
+    returned the same tokens. Returns ({name: all_ids}, steps)."""
+    batch = DP_FLOWS[flow][3]
+    n_data = DP_LAYOUTS[layout][0]
+    tag = f"[10a] {layout} {mode} {flow}"
+    by_data, steps = {}, set()
+    for r in ranks:
+        res = r[mode]["flows"][flow]
+        d = r["data"]
+        per = batch // n_data
+        check(tuple(res["rows"]) == (d * per, (d + 1) * per),
+              f"{tag}: data rank {d} serves rows {res['rows']}")
+        steps.add(res["steps"])
+        streams = {k: v[0] for k, v in res["streams"].items()}
+        if d in by_data:
+            check(streams == by_data[d], f"{tag}: the model ranks of data rank {d} differ")
+        by_data[d] = streams
+    check(sorted(by_data) == list(range(n_data)), f"{tag}: data ranks {sorted(by_data)}")
+    check(len(steps) == 1, f"{tag}: the ranks took {sorted(steps)} steps")
+    merged = {}
+    for d in sorted(by_data):
+        check(not set(merged) & set(by_data[d]), f"{tag}: two data ranks hold one stream")
+        merged.update(by_data[d])
+    return merged, steps.pop()
+
+
+def phase10a():
+    """Full width, 2 + 2 layers, f32, chunk 8, dec_ring 256, in MGR_MODES:
+    FleetManager(tp=) on ranks spawned over cuda:0 (gloo), against one
+    process on the card. Data 2 x model 1 (global B 4): the JAX worker's
+    basic flow and its asymmetric churn with pipeline_steps 1 and 2; data
+    2 x model 2 (global B 2, four ranks): the meshed flow and the slot
+    churn. Float rings: tokens equal; quantized: phase 4's gap rule.
+    Returns (main-path launches per kernel, K1-tp launches)."""
+    from voxtral_tpu_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    clips = _dp_clips()
+    ref = _dp_reference(clips)
+    t_ref = time.perf_counter() - t0
+    total, k1tp = dict.fromkeys(_counts(), 0), 0
+    for layout, (n_data, n_model, flows) in DP_LAYOUTS.items():
+        t1 = time.perf_counter()
+        ranks = run_ranks(_dp_rank, n_data * n_model, (n_data, flows, clips),
+                          timeout=DP_TIMEOUT)
+        t_ranks = time.perf_counter() - t1
+        for mode in MGR_MODES:
+            dec = "ring_gqa_attention" if mode == "float" else "ring_gqa_attention_int8"
+            q8 = mode.startswith("q8")
+            notes, seen = [], {}
+            for flow in flows:
+                got, steps = _dp_gather(layout, mode, flow, ranks)
+                want, ref_steps = ref[mode]["churn" if flow.startswith("churn") else flow]
+                check(sorted(got) == sorted(want),
+                      f"[10a] {layout} {mode} {flow}: streams {sorted(got)}")
+                notes += _mgr_vs_cpu(mode, flow, got, {k: v[0] for k, v in want.items()},
+                                     {k: v[1] for k, v in want.items()}, tag="10a",
+                                     against="one process")
+                seen[flow] = dict(steps=steps, one_process_steps=ref_steps,
+                                  tokens={str(k): len(v) for k, v in got.items()},
+                                  distinct=len({t for v in got.values() for t in v}))
+            for r in ranks:
+                counts = r[mode]["launches"]
+                check(counts[dec] > 0 and counts["ring_gqa_attention_enc"] > 0
+                      and counts["fused_logits_argmax"] > 0 and (counts["w8a16_gemv"] > 0) == q8,
+                      f"[10a] {layout} {mode} rank ({r['data']}, {r['model']}): "
+                      f"launches {counts}")
+                for k, v in counts.items():
+                    if n_model > 1 and k in DP_RING_KERNELS:
+                        k1tp += v
+                    else:
+                        total[k] += v
+            log(f"[10a] {layout} {mode}: every stream "
+                + ("equal to one process" if not notes else "as one process but: "
+                   + "; ".join(notes))
+                + f"; per flow {json.dumps(seen)}; launches of rank 0 "
+                  f"{json.dumps({k: v for k, v in ranks[0][mode]['launches'].items() if v})}")
+        log(f"[10a] {layout}: {n_data * n_model} ranks took {t_ranks:.1f} s")
+    log(f"[10a] one-process references {t_ref:.1f} s; K1-tp launches on the model-2 "
+        f"ranks {k1tp}; took {time.perf_counter() - t0:.1f} s")
+    return total, k1tp
+
+
+def _dp_serve_rank(rank, world, cfg, clips, late):
+    """One rank of phase 10b: gloo over cuda:0, a (2, 1) mesh, 8b's Q8 tree
+    built on the card, this rank's rows of 8b's clips served twice
+    (pipeline_steps 1 and 2) through _mgr_serve, each run with its launch
+    counts (0 just before, read just after), wall, steps and peak memory."""
+    import torch
+    from voxtral_tpu_torch.parallel import global_mesh, host_row_range
+    from voxtral_tpu_torch.quant import quantize_params
+    from voxtral_tpu_torch.runtime import FleetManager
+    from voxtral_tpu_torch.weights import random_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = global_mesh(world, 1)
+    params = quantize_params(random_params(cfg, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    lo, hi = host_row_range(tp, SERVE_B)
+    mine = {i: clips[i] for i in range(lo, hi)}
+    runs = []
+    for depth in (1, 2):
+        mgr = FleetManager(params, cfg, SERVE_B, chunk_tokens=SERVE_CHUNK, dec_ring=2048,
+                           kv_dtype="int8", enc_kv_dtype="int4", pipeline_steps=depth, tp=tp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()                          # a DP serving run starts
+        t0 = time.perf_counter()
+        sids, walls = _mgr_serve(mgr, mine, tuple(i for i in late if lo <= i < hi))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()                       # ... and ends
+        poll_s = sum(w for _, w in walls)
+        runs.append(dict(pipeline_steps=depth, ids=_mgr_ids(mgr, sids), steps=mgr.steps,
+                         rows=(mgr.row_lo, mgr.row_hi), wall_s=wall, polls=len(walls),
+                         step_ms=mgr.step_ms_total / mgr.steps,
+                         host_share=1.0 - mgr.step_ms_total / (1e3 * poll_s),
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         launches=counts))
+        del mgr
+    return dict(rank=rank, build_peak_gib=build_peak, runs=runs)
+
+
+def phase10b(serve_ref):
+    """Full 4B width and depth, bf16, Q8 weights with int8 + int4 rings,
+    chunk 20, dec_ring 2048: two ranks (data 2 x model 1) on cuda:0, 8
+    streams each, serve phase 8b's 16 clips on 8b's schedule (the four late
+    ones all on rank 1), once with pipeline_steps 1 and once with 2. The
+    runs' tokens must be identical, each rank's tokens must agree with 8b's
+    run 0 (`serve_ref`: its result and tokens) on at least TP_BF16_AGREE of
+    them (phase 7's rule: a flip within bf16's rounding changes the rest of
+    its stream, so a stream's own share says where it flipped), the ranks
+    take equal steps. Logged beside 8b's one process:
+    aggregate audio-s/s (audio over the slowest rank's wall), per-rank
+    steps, step ms, host share and peak GiB. Returns the main-path
+    launches per kernel."""
+    import torch
+    from voxtral_tpu_torch.config import voxtral_4b
+    from voxtral_tpu_torch.parallel.launch import run_ranks
+    t0 = time.perf_counter()
+    ref8b, ref_ids = serve_ref
+    cfg = voxtral_4b(torch.bfloat16, torch.bfloat16)
+    clips = {i: synthetic_audio(4.0 + 8.0 * i / (SERVE_B - 1), 300 + i)
+             for i in range(SERVE_B)}
+    late = tuple(range(SERVE_B - SERVE_LATE, SERVE_B))
+    audio_s = sum(a.size for a in clips.values()) / cfg.audio.sample_rate
+    ranks = run_ranks(_dp_serve_rank, 2, (cfg, clips, late), timeout=DP_TIMEOUT)
+    kernels = ("ring_gqa_attention_int8", "ring_gqa_attention_enc", "w8a16_gemv",
+               "fused_logits_argmax")
+    total = dict.fromkeys(_counts(), 0)
+    check([r["runs"][0]["rows"] for r in ranks] == [(0, SERVE_B // 2), (SERVE_B // 2, SERVE_B)],
+          f"[10b] rows {[r['runs'][0]['rows'] for r in ranks]}")
+    agree = {}
+    for k in range(2):
+        runs = [r["runs"][k] for r in ranks]
+        depth = runs[0]["pipeline_steps"]
+        check(len({x["steps"] for x in runs}) == 1,
+              f"[10b] pipeline_steps {depth}: rank steps {[x['steps'] for x in runs]}")
+        for r, x in zip(ranks, runs):
+            check(all(x["launches"][n] > 0 for n in kernels),
+                  f"[10b] rank {r['rank']} pipeline_steps {depth}: launches {x['launches']}")
+            for n, v in x["launches"].items():
+                total[n] += v
+            check(all(0 <= t < cfg.decoder.vocab_size for v in x["ids"].values() for t in v),
+                  "[10b] token out of range")
+        if k:
+            for r in ranks:
+                check(r["runs"][1]["ids"] == r["runs"][0]["ids"],
+                      f"[10b] rank {r['rank']}: pipeline_steps 2 changed the tokens")
+        wall = max(x["wall_s"] for x in runs)
+        log(f"[10b] " + json.dumps(dict(
+            pipeline_steps=depth, streams=SERVE_B, audio_s=audio_s,
+            audio_s_per_s=audio_s / wall, one_process_audio_s_per_s=ref8b["audio_s_per_s"],
+            one_process_steps=ref8b["steps"], one_process_step_ms=ref8b["step_ms"],
+            one_process_host_share=ref8b["host_share"],
+            one_process_peak_gib=ref8b["peak_gib"],
+            ranks=[dict(rank=r["rank"], steps=x["steps"], polls=x["polls"], wall_s=x["wall_s"],
+                        step_ms=x["step_ms"], host_share=x["host_share"],
+                        peak_gib=x["peak_gib"], build_peak_gib=r["build_peak_gib"],
+                        launches={n: x["launches"][n] for n in kernels})
+                   for r, x in zip(ranks, runs)])))
+    for r in ranks:
+        equal = tokens = 0
+        for i, got in r["runs"][0]["ids"].items():
+            want = ref_ids[i]
+            n, same = max(len(got), len(want)), sum(a == b for a, b in zip(got, want))
+            first = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+                         min(len(got), len(want)))
+            agree[i] = dict(share=same / n, tokens=n, first_difference=first if same < n else None)
+            equal, tokens = equal + same, tokens + n
+        check(equal / tokens >= TP_BF16_AGREE, f"[10b] rank {r['rank']}: {equal / tokens} of its "
+                                                f"tokens equal 8b's < {TP_BF16_AGREE}")
+        agree[f"rank {r['rank']}"] = equal / tokens
+    log(f"[10b] tokens equal to 8b's run 0, each rank's share and each stream's (with its "
+        f"first difference): {json.dumps(agree)}; took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def phase10(serve_ref):
+    """Phase 10: multi-process data parallelism through FleetManager(tp=).
+    Returns its main-path launches per kernel (the model-2 ranks' ring
+    kernels excepted) and the model-2 ranks' ring launches (K1-tp's)."""
+    t0 = time.perf_counter()
+    total, k1tp = phase10a()
+    log(f"[10a] took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for k, v in phase10b(serve_ref).items():
+        total[k] += v
+    log(f"[10b] took {time.perf_counter() - t0:.1f} s")
+    return total, k1tp
+
+
 def ceiling_shares(rows):
     """Each kernel that reads what a read ceiling reads, as a share of that
     ceiling measured in this run: the ceiling's time for the same data over
@@ -2936,8 +3413,8 @@ def ceiling_shares(rows):
     return out
 
 
-# What each path must launch: the serving path (phases 3, 5, 8 and 9b; q8_mm
-# is the Q8 large-M route, not a kernel) and the tools path (phase 6).
+# What each path must launch: the serving path (phases 3, 5, 8, 9b and 10;
+# q8_mm is the Q8 large-M route, not a kernel) and the tools path (phase 6).
 MAIN_PATH = ("ring_gqa_attention", "ring_gqa_attention_int8", "ring_gqa_attention_enc",
              "w8a16_gemv", "fused_logits_argmax", "q8_mm")
 TOOLS_PATH = ("wread", "pure_stream", "bf16_matmul", "rd", "w8a16_gemv",
@@ -2988,16 +3465,18 @@ def main() -> int:
     k1tp_launches, _ = phase7()
     log(f"[7] done at {time.perf_counter() - t_start:.1f} s")
     check(k1tp_launches > 0, "the TP path launched no ring attention kernel")
-    launches8, q8_params, cfg4b = phase8(results5[("q8+int8+int4", 1)]["step_ms"])
+    launches8, q8_params, cfg4b, serve_ref = phase8(results5[("q8+int8+int4", 1)]["step_ms"])
     log(f"[8] done at {time.perf_counter() - t_start:.1f} s")
     launches9 = phase9(q8_params, cfg4b)
     del q8_params
     torch.cuda.empty_cache()
     log(f"[9] done at {time.perf_counter() - t_start:.1f} s")
-    launches = {k: launches3[k] + launches5[k] + launches8[k] + launches9[k]
+    launches10, k1tp10 = phase10(serve_ref)
+    log(f"[10] done at {time.perf_counter() - t_start:.1f} s")
+    launches = {k: launches3[k] + launches5[k] + launches8[k] + launches9[k] + launches10[k]
                 for k in launches3}
-    log(f"[9] main-path launches (phases 3, 5, 8 and 9b; q8_mm counts the Q8 large-M "
-        f"route's calls): {json.dumps(launches)}")
+    log(f"[10] main-path launches (phases 3, 5, 8, 9b and 10 but the model-2 ranks' ring "
+        f"kernels; q8_mm counts the Q8 large-M route's calls): {json.dumps(launches)}")
     for k in MAIN_PATH:
         check(launches[k] > 0, f"the main path launched no {k} kernel")
     attention = "voxtral_tpu/ops/pallas_attention.py:204"
@@ -3036,9 +3515,10 @@ def main() -> int:
                       "tools/profile_ring_layout2.py:64", dict(b=RL_STREAMS, blk=512)),
         _kernel_entry(rows, tool_launches, "rd_g", "ring_layout.cu",
                       "tools/profile_ring_layout2.py:121", dict(b=RL_STREAMS, g=4, blk=512)),
-        # K1-tp: the ring kernels on each rank's heads, launched on the TP path
-        # (phase 7); its numbers are rank 0's call at m = 2 (int8 decode rings)
-        _kernel_entry(rows, {"ring_gqa_attention_tp": k1tp_launches},
+        # K1-tp: the ring kernels on each rank's heads, launched on the TP paths
+        # (phase 7 and phase 10a's model-2 ranks); its numbers are rank 0's
+        # call at m = 2 (int8 decode rings)
+        _kernel_entry(rows, {"ring_gqa_attention_tp": k1tp_launches + k1tp10},
                       "ring_gqa_attention_tp", "ring_attention.cu",
                       "voxtral_tpu/ops/pallas_attention.py:370",
                       dict(base="ring_gqa_attention_int8", m=2)),

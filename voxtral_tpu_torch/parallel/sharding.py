@@ -203,7 +203,10 @@ def _slice(t: torch.Tensor, axis: int, tp: TensorParallel) -> torch.Tensor:
 
 def shard_params(params: dict, cfg: VoxtralConfig, tp: TensorParallel) -> dict:
     """This rank's contiguous slices of a whole param tree (float or Q8
-    leaves); replicated leaves are shared, not copied."""
+    leaves); replicated leaves are shared, not copied. On a model axis of
+    one rank every leaf is whole, and the tree itself is returned."""
+    if tp.model_size == 1:
+        return params
 
     def put(x, axis):
         if axis is None:

@@ -1,5 +1,5 @@
 """FleetManager: the multi-stream serving runtime (counterpart of
-`voxtral_tpu/runtime/manager.py`, one process).
+`voxtral_tpu/runtime/manager.py`).
 
 Hosts B concurrent transcription streams in ONE device-resident FleetState,
 advanced by the masked fleet step (runtime/fleet.py::fleet_step_masked):
@@ -51,7 +51,25 @@ Two differences from the JAX manager, both faults of the reference:
 - poll() raises when a previous poll left steps in flight (it aborted
   mid-pipeline) instead of overwriting the pipeline.
 
-Multi-process data parallelism (the JAX manager's `mesh=`) is not ported.
+Multi-process data parallelism (the JAX manager's `mesh=`): pass `tp`,
+this rank's TensorParallel on a mesh over every rank
+(parallel/distributed.global_mesh). Every rank runs this manager with the
+same arguments and the WHOLE param tree, which it slices to its heads,
+FFN columns and vocabulary (shard_params). `batch` stays the GLOBAL stream
+count; a rank serves its data index's rows [row_lo, row_hi)
+(host_row_range): its slot ids are local rows, it feeds and reads only
+those, and its state holds only those. The model ranks of one data index
+hold the same rows, and the caller feeds them the same calls: their tokens
+agree (the greedy head merges the winning logit over the model group, the
+alt path all-gathers the logits), so their host control does too. The
+decision that gates a step (is any stream ready on any rank?) is agreed
+through any_across_hosts, so every rank runs the same sequence of steps
+and of the collectives inside them; a rank with no ready stream steps an
+all-inactive block. All ranks must call poll() in lockstep, and every loop
+exit the caller takes must be agreed the same way. Unlike the JAX manager,
+per-slot resets are applied without agreement: fleet_reset_slots runs no
+collective, so a reset on one rank leaves the others' call sequence
+alone (tokens are unaffected).
 """
 
 from __future__ import annotations
@@ -66,6 +84,8 @@ from voxtral_tpu_torch.config import VoxtralConfig
 from voxtral_tpu_torch.models.decoder import (
     ada_scales, retained_window, time_conditioning,
 )
+from voxtral_tpu_torch.parallel.distributed import any_across_hosts, host_row_range
+from voxtral_tpu_torch.parallel.sharding import shard_params
 from voxtral_tpu_torch.quant import Quantized
 from voxtral_tpu_torch.runtime.alts import select_alts
 from voxtral_tpu_torch.runtime.fleet import (
@@ -167,7 +187,7 @@ class FleetManager:
                  wire_dtype: str = "f32", monitor=None,
                  monitor_slow_ms: float = 40.0,
                  max_steps_per_poll: int | None = None,
-                 pipeline_steps: int = 1, device="cuda"):
+                 pipeline_steps: int = 1, device="cuda", tp=None):
         # monitor: optional per-slot pipeline-event hook `monitor(sid, sym)`
         # with the reference's --monitor symbol set (README.md:105-130):
         # ▪/▸ text decode fast/slow, ▫/▹ control-only, ✗/✘ invalid, ◦ EOS,
@@ -178,6 +198,9 @@ class FleetManager:
         # (exact). Float feeds are round-tripped through int16 in this mode.
         # device: where the state lives and the steps run ("cuda" raises
         # without CUDA); `params` must already live there.
+        # tp: this rank's TensorParallel for multi-process serving (see the
+        # module docstring); `params` is the whole tree, sliced here, and
+        # `batch` must divide by the data axis.
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -187,6 +210,14 @@ class FleetManager:
                 f"params live on {p_dev}, the manager runs on {dev}: move them "
                 "(weights.from_numpy_params / random_params take device=)")
         self.device = dev
+        self.tp = tp
+        self._n_procs = 1
+        self.row_lo, self.row_hi = 0, batch
+        if tp is not None:
+            self.row_lo, self.row_hi = host_row_range(tp, batch)
+            params = shard_params(params, cfg, tp)
+            self._n_procs = tp.data_size * tp.model_size
+        self.local_batch = self.row_hi - self.row_lo
         self.params = params
         self.cfg = cfg
         self.tok = tokenizer
@@ -214,9 +245,10 @@ class FleetManager:
         self.state = init_fleet_state(
             cfg, batch=batch, enc_ring=enc_ring, dec_ring=dec_ring,
             max_mel_chunk=self.max_chunk_tokens * 8, kv_dtype=kv_dtype,
-            enc_kv_dtype=enc_kv_dtype, device=dev)
-        self.slots = [_Slot() for _ in range(batch)]
-        self._pending_resets: dict = {}    # sid -> full: bool
+            enc_kv_dtype=enc_kv_dtype, device=dev, tp=tp)
+        # slot ids are LOCAL rows (the global rows on one process)
+        self.slots = [_Slot() for _ in range(self.local_batch)]
+        self._pending_resets: dict = {}    # local sid -> full: bool
         self.left_pad = (st.n_left_pad_tokens * cfg.audio.raw_audio_per_token
                          - pcm_stream_skew(cfg))
         self.steps = 0
@@ -367,7 +399,11 @@ class FleetManager:
         set (latency mode), at most that many steps run per call and the
         rest of the backlog waits for the next poll: call again until 0 to
         drain. Raises RuntimeError if a previous poll aborted with steps
-        still in flight."""
+        still in flight.
+
+        Multi-process (tp=): every rank must call poll() at the same time;
+        whether a step runs is agreed through _any_hosts, so all ranks take
+        the same steps even when only one of them has ready streams."""
         if self._dispatched or self._staged_next is not None:
             raise RuntimeError(
                 "poll() with a step still in flight: a previous poll aborted "
@@ -378,7 +414,7 @@ class FleetManager:
         topk = self.n_alt - 1 if self.n_alt > 1 else 0
         steps_done = dispatched = 0
         t_last_retire = time.perf_counter()
-        self._staged_next = self._stage({})
+        self._staged_next = self._stage_sync({})
         while self._staged_next is not None or self._dispatched:
             # dispatch while the pipeline has room and the cap allows.
             # Non-continuous streams stop decoding at EOS ON DEVICE (the
@@ -400,14 +436,15 @@ class FleetManager:
                 self.state, tokens, aux = fleet_step_masked(
                     self.params, self.cfg, self.state, st.pcm_dev,
                     None, None, self.t_ada, collect_topk=topk,
-                    stop_at_eos=not self.continuous, wire_packed=True)
+                    stop_at_eos=not self.continuous, wire_packed=True,
+                    tp=self.tp)
                 st.out = self._start_fetch(aux["packed"] if topk else tokens)
                 self._dispatched.append(st)
                 dispatched += 1
                 if cap is None or dispatched < cap:
                     # stage the next chunk batch NOW: its upload overlaps
                     # the running step
-                    self._staged_next = self._stage(self._inflight_replay())
+                    self._staged_next = self._stage_sync(self._inflight_replay())
             # retire the oldest in-flight step
             staged = self._dispatched.pop(0)
             self._inflight_sids = set()
@@ -449,7 +486,7 @@ class FleetManager:
             if (self._staged_next is None
                     and (cap is None or dispatched < cap)):
                 # a restart may have re-buffered samples during consume
-                self._staged_next = self._stage(self._inflight_replay())
+                self._staged_next = self._stage_sync(self._inflight_replay())
         self._apply_resets()   # resets from the final consume
         return steps_done
 
@@ -499,15 +536,27 @@ class FleetManager:
             done.synchronize()
         return host.numpy()
 
-    def _stage(self, inflight: dict):
-        """Cut a full chunk from every ready slot and start its upload;
-        None when no slot has a full chunk buffered. inflight: sid ->
-        number of forced-replay tokens in the steps that are dispatched but
-        not retired; replay projection keeps the staged forced rows
-        identical to what the serial order would compute."""
-        if not self.ready():
+    def _any_hosts(self, flags) -> np.ndarray:
+        """Elementwise OR of `flags` over every rank (one process: flags)."""
+        if self._n_procs == 1:
+            return np.asarray(flags, bool)
+        return any_across_hosts(flags)
+
+    def _stage_sync(self, inflight: dict):
+        """_stage, gated by the ready flag agreed over every rank: None iff
+        no rank has a full chunk buffered; a rank with nothing ready still
+        stages an all-inactive block, so it takes part in the agreed step."""
+        if not self._any_hosts([self.ready()])[0]:
             return None
-        b, n = self.batch, self.n
+        return self._stage(inflight)
+
+    def _stage(self, inflight: dict):
+        """Cut a full chunk from every ready local slot and start its
+        upload. inflight: sid -> number of forced-replay tokens in the
+        steps that are dispatched but not retired; replay projection keeps
+        the staged forced rows identical to what the serial order would
+        compute."""
+        b, n = self.local_batch, self.n
         wire = np.int16 if self.wire_dtype == "s16" else np.float32
         pcm = np.zeros((b, self.chunk_samp), wire)
         active = np.zeros(b, bool)
@@ -542,11 +591,12 @@ class FleetManager:
 
     def _apply_resets(self):
         """Apply the queued per-slot resets: at most one full and one
-        decoder-only fleet_reset_slots call."""
+        decoder-only fleet_reset_slots call. Unlike the JAX manager's, they
+        are not agreed over ranks: the reset runs no collective."""
         if not self._pending_resets:
             return
-        dec = np.zeros(self.batch, bool)
-        full = np.zeros(self.batch, bool)
+        dec = np.zeros(self.local_batch, bool)
+        full = np.zeros(self.local_batch, bool)
         for sid, f in self._pending_resets.items():
             (full if f else dec)[sid] = True
         self._pending_resets.clear()
@@ -613,7 +663,11 @@ class FleetManager:
             g.forced[sid] = -1
             g.dirty = True       # wire already uploaded: re-pack at
             # dispatch (poll) so the device sees the edited rows
-            if not g.part:
+            if not g.part and self._n_procs == 1:
+                # several ranks keep an empty staged block: the step is
+                # agreed over ranks (others' rows may take part), and
+                # dropping it on one rank only would desync the sequence
+                # of collectives
                 self._staged_next = None
         self._queue_reset(sid, full=full)
         s.replay_left = self.prompt_len - 1
@@ -744,8 +798,8 @@ class FleetManager:
         }
 
     def close(self):
-        """Nothing to release on one process (the JAX manager's mesh
-        context has no counterpart here)."""
+        """Nothing to release: the JAX manager's mesh context has no
+        counterpart here, and the process group belongs to the caller."""
 
     def __enter__(self):
         return self

@@ -56,7 +56,7 @@ Phases (any failure raises and the script exits non-zero):
      versions) must give equal tokens and best logits, with float weights
      and with Q8 weights (quantize_params: K2 and K3 on the card).
   3. Offline serving at full 4B width and depth in bf16: three requests
-     (about 3 s, 8 s and 15 s of audio), run twice; tokens must be
+     (about 3 s, 8 s and 10 s of audio), run twice; tokens must be
      identical, and K1's launch count must equal 26 x decode steps.
   4. The fleet step, reduced depth (2+2 layers), full width, f32, B = 2, in
      the three ring modes (float; int8; int8 decoder + int4 encoder) and
@@ -143,7 +143,8 @@ Phases (any failure raises and the script exits non-zero):
      worker's basic flow and its asymmetric churn (rank 0 churns a slot
      while rank 1 keeps feeding) with pipeline_steps 1 and 2; data 2 x
      model 2 (global B 2, four ranks) runs tests/test_manager.py's meshed
-     flow and slot churn. Every stream against one process on the card
+     flow and slot churn; the flows and their audio are the CPU tests'
+     own. Every stream against one process on the card
      (float rings: equal; quantized: phase 4's gap rule); the rows
      partitioned disjointly and completely, equal step counts on every
      rank, and each rank launches its decode ring kernel, K1-enc, K3 and,
@@ -151,11 +152,14 @@ Phases (any failure raises and the script exits non-zero):
      10b: full 4B width and depth, bf16, 8b's Q8 + int8 + int4 serving
      default, data 2 x model 1, 8 streams a rank: 8b's 16 clips on 8b's
      schedule (the four late ones on rank 1), with pipeline_steps 1 and 2;
-     the two runs' tokens identical, each rank's tokens at least
-     TP_BF16_AGREE equal to 8b's run 0 (each stream's share logged), equal
-     step counts; logged beside 8b's one
-     process: aggregate audio-s/s, per-rank steps, step ms, host share and
-     peak memory (no claim: the two ranks time-slice one card).
+     the two runs' tokens identical; the mirror run (16 streams a rank, so
+     every call holds 8b's rows) equal to 8b's run 0 on every stream, in
+     8b's steps; each rank's tokens at least TP_BF16_AGREE equal to 8b's
+     run 0 (each stream's share logged; a probe on rank 0 logs which ops
+     round a row apart at 8 rows a call against 16), equal step counts;
+     logged beside
+     8b's one process: aggregate audio-s/s, per-rank steps, step ms, host
+     share and peak memory (no claim: the two ranks time-slice one card).
 The next-to-last lines are the card's name/power limit and one JSON object
 with each kernel's numbers; the last line is the run's result as JSON.
 Weights are random (seeded): tokens are meaningless but deterministic.
@@ -1855,7 +1859,7 @@ def phase3():
     torch.cuda.synchronize()
     log(f"[3] random 4B bf16 params on the card in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    clips = [(3.0, 11), (8.0, 12), (15.0, 13)]
+    clips = [(3.0, 11), (8.0, 12), (10.0, 13)]
     audios = [synthetic_audio(sec, seed) for sec, seed in clips]
     passes = []
     _reset_counts()                             # main path starts here
@@ -2291,6 +2295,14 @@ def _gap_recorder():
     return GapRecorder
 
 
+def _serve_clips():
+    """8b's sixteen clips of 4-12 s ({i: audio}) and the four attached a
+    poll late."""
+    clips = {i: synthetic_audio(4.0 + 8.0 * i / (SERVE_B - 1), 300 + i)
+             for i in range(SERVE_B)}
+    return clips, tuple(range(SERVE_B - SERVE_LATE, SERVE_B))
+
+
 def _mgr_serve(mgr, clips, late=(), poll=None):
     """Serve `clips` ({name: audio}) through `mgr`: attach every clip not in
     `late`, feed 1 s pieces round-robin with a poll after each round, attach
@@ -2441,9 +2453,7 @@ def phase8b(total, direct):
     cfg = voxtral_4b(torch.bfloat16, torch.bfloat16)
     params = quantize_params(random_params(cfg, seed=0, device="cuda"))
     torch.cuda.synchronize()
-    clips = {i: synthetic_audio(4.0 + 8.0 * i / (SERVE_B - 1), 300 + i)
-             for i in range(SERVE_B)}
-    late = tuple(range(SERVE_B - SERVE_LATE, SERVE_B))
+    clips, late = _serve_clips()
     audio_s = sum(a.size for a in clips.values()) / cfg.audio.sample_rate
     kernels = ("ring_gqa_attention_int8", "ring_gqa_attention_enc", "w8a16_gemv",
                "fused_logits_argmax")
@@ -2603,7 +2613,7 @@ def phase8(direct):
 # Phase 9: VoxStream, transcribe_audio and the CLI
 # ---------------------------------------------------------------------------
 
-STREAM_PROFILED_FEEDS = (6, 7)     # first, last 1 s feed profiled in a repeat
+STREAM_PROFILED_FEEDS = (6, 6)     # first, last 1 s feed profiled in a repeat
 
 
 def _timed_stream():
@@ -2773,7 +2783,7 @@ def phase9b(total, q8_params, cfg):
     clip (written as a 16-bit WAV and read back: the CLI's input) through
     transcribe_audio (auto: fused on float rings), the bucketed backend and
     the fused backend on phase 8b's Q8 tree with int8 + int4 rings; each
-    twice with identical tokens, the second run profiling 1 s feeds 6-7.
+    twice with identical tokens, the second run profiling the 1 s feed 6.
     Adds the launches to `total`. Returns the WAV path's directory, the
     path and transcribe_audio's text."""
     import os
@@ -2924,7 +2934,7 @@ def phase9(q8_params, cfg):
 # Phase 10: multi-process data parallelism through FleetManager(tp=)
 # ---------------------------------------------------------------------------
 
-DP_BATCH, DP_CHUNK, DP_RING, DP_REBORN = 4, 8, 256, 9
+DP_BATCH, DP_CHUNK, DP_RING = 4, 8, 256
 DP_TIMEOUT = 600.0
 DP_RING_KERNELS = ("ring_gqa_attention", "ring_gqa_attention_int8", "ring_gqa_attention_enc")
 # layout: (n_data, n_model, flows)
@@ -2932,162 +2942,36 @@ DP_LAYOUTS = {"data 2 x model 1": (2, 1, ("basic", "churn 1", "churn 2")),
               "data 2 x model 2": (2, 2, ("meshed", "mesh churn"))}
 
 
-def _dp_clips():
-    """Phase 10a's clips, synthetic speech at the flows' lengths. "worker":
-    tests/multihost_worker.py's, 2 s for global row g, 2 s more live audio
-    (key 1000 + g) for rows 1-3, 2 s for the reborn stream; "mesh":
-    tests/test_manager.py:248's two streams (3 s, 2 s) and :632's three
-    (2, 3 and 2 s)."""
-    worker = {g: synthetic_audio(2.0, 400 + g) for g in range(DP_BATCH)}
-    worker.update({1000 + g: synthetic_audio(2.0, 1400 + g) for g in range(1, DP_BATCH)})
-    worker[DP_REBORN] = synthetic_audio(2.0, 400 + DP_REBORN)
-    mesh = {name: synthetic_audio(sec, seed) for name, sec, seed in
-            (("a", 3.0, 403), ("b", 2.0, 404), ("c0", 2.0, 431), ("c1", 3.0, 432),
-             ("c2", 2.0, 433))}
-    return dict(worker=worker, mesh=mesh)
+# flow: (pipeline_steps, global batch); the flows are the CPU tests' own
+# (_dp_flows)
+DP_FLOWS = {"basic": (1, DP_BATCH), "churn 1": (1, DP_BATCH), "churn 2": (2, DP_BATCH),
+            "meshed": (1, 2), "mesh churn": (1, 2)}
+# the one-process runs' slot of each stream a flow returns (for the gaps)
+DP_SLOTS = {"meshed": {0: 0, 1: 1}, "mesh churn": {"a2": 0, "a1": 1}}
 
 
-def _dp_take(mgr, sid):
-    """(all_ids, top-2 gap of each) of a slot; the gaps are None unless the
-    manager records them (_gap_recorder)."""
-    gaps = getattr(mgr, "gaps", None)
-    return list(mgr.slots[sid].all_ids), None if gaps is None else list(gaps[sid])
-
-
-def _dp_basic(mgr, clips):
-    """tests/multihost_worker.py's basic flow: each local row's clip (global
-    row g: clips[g]) fed whole and finished, then polls until every stream
-    on every rank has finished. {global row: _dp_take}."""
+def _dp_flows():
+    """Phase 10a's flows, each mgr -> {stream: all_ids}, the CPU tests' own
+    with their audio: tests/multihost_worker.py's churn (global row 0 churned
+    on its rank while the other rows keep feeding live audio),
+    test_torch_multihost.basic_flow, and test_torch_manager_mesh's meshed
+    flow and slot churn. Every loop exit in them is agreed over the ranks."""
+    import os
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import multihost_worker as mw
+    import test_torch_manager_mesh as mesh
+    import test_torch_multihost as multihost
     from voxtral_tpu_torch.parallel import any_across_hosts
-    sids = [mgr.attach() for _ in range(mgr.local_batch)]
-    for sid in sids:
-        mgr.feed(sid, clips[mgr.row_lo + sid])
-        mgr.finish(sid)
-    while True:
-        mgr.poll()
-        if not any_across_hosts([not all(mgr.is_finished(s) for s in sids)])[0]:
-            break
-    return {mgr.row_lo + sid: _dp_take(mgr, sid) for sid in sids}
+
+    def churn(mgr):
+        return {int(k): v for k, v in mw.churn_flow(mgr, np, any_across_hosts).items()}
+    return {"basic": multihost.basic_flow, "churn 1": churn, "churn 2": churn,
+            "meshed": mesh.meshed, "mesh churn": mesh.churn}, multihost.solo_audio
 
 
-def _dp_churn(mgr, clips):
-    """tests/multihost_worker.py's churn_flow: the rank holding global row
-    0 finishes it, drains it, detaches it and attaches the reborn stream
-    into the freed slot, while every other row keeps feeding 0.5 s of live
-    audio a poll; every loop exit agreed over the ranks. {0, DP_REBORN or
-    global row: _dp_take}."""
-    from voxtral_tpu_torch.parallel import any_across_hosts
-    sids = [mgr.attach() for _ in range(mgr.local_batch)]
-    extra = {}
-    for sid in sids:
-        g = mgr.row_lo + sid
-        mgr.feed(sid, clips[g])
-        if g == 0:
-            mgr.finish(sid)
-        else:
-            extra[sid] = clips[1000 + g]
-
-    def feed_tick():
-        for sid in list(extra):
-            a, extra[sid] = extra[sid][:8000], extra[sid][8000:]
-            mgr.feed(sid, a)
-            if not len(extra[sid]):
-                mgr.finish(sid)
-                del extra[sid]
-
-    while True:
-        feed_tick()
-        mgr.poll()
-        if not any_across_hosts([mgr.row_lo == 0 and not mgr.is_finished(0)])[0]:
-            break
-    out = {}
-    if mgr.row_lo == 0:
-        out[0] = _dp_take(mgr, 0)
-        mgr.detach(0)
-        check(mgr.attach() == 0, "[10a] churn: the freed slot was not reused")
-        mgr.feed(0, clips[DP_REBORN])
-        mgr.finish(0)
-    while True:
-        feed_tick()
-        mgr.poll()
-        pending = bool(extra) or not all(mgr.is_finished(s) for s in sids
-                                         if mgr.slots[s].active)
-        if not any_across_hosts([pending])[0]:
-            break
-    for sid in sids:
-        g = mgr.row_lo + sid
-        out[DP_REBORN if g == 0 else g] = _dp_take(mgr, sid)
-    return out
-
-
-def _dp_serve(mgr, feeds):
-    """tests/test_manager.py:_serve with agreed loops: feeds {sid: audio}
-    in 1 s pieces with a poll after each round while any rank has audio
-    left, then finish and drain. {sid: _dp_take}."""
-    from voxtral_tpu_torch.parallel import any_across_hosts
-    pos = dict.fromkeys(feeds, 0)
-    while any_across_hosts([any(pos[s] < len(a) for s, a in feeds.items())])[0]:
-        for sid, a in feeds.items():
-            if pos[sid] < len(a):
-                mgr.feed(sid, a[pos[sid]:pos[sid] + 16000])
-                pos[sid] += 16000
-        mgr.poll()
-    for sid in feeds:
-        mgr.finish(sid)
-    for _ in range(64):
-        if not any_across_hosts([not all(mgr.is_finished(s) for s in feeds)])[0]:
-            break
-        mgr.poll()
-    return {sid: _dp_take(mgr, sid) for sid in feeds}
-
-
-def _dp_meshed(mgr, clips):
-    """tests/test_manager.py:248's flow: global row 0 serves clip "a", row
-    1 clip "b". {global row: _dp_take}."""
-    rows = {mgr.attach(): row for row in range(mgr.row_lo, mgr.row_hi)}
-    got = _dp_serve(mgr, {sid: clips["ab"[row]] for sid, row in rows.items()})
-    return {rows[sid]: v for sid, v in got.items()}
-
-
-def _dp_mesh_churn(mgr, clips):
-    """tests/test_manager.py:632's slot churn: rows 0 (clip c0) and 1 (c1)
-    take 1 s pieces; row 0 finishes, drains and is detached, and its slot
-    serves c2 while row 1 goes on with the rest of c1. {"c2" / "c1":
-    _dp_take} of the rows held here."""
-    from voxtral_tpu_torch.parallel import any_across_hosts
-    a0, a1, a2 = clips["c0"], clips["c1"], clips["c2"]
-    streams = {row: mgr.attach() for row in range(mgr.row_lo, mgr.row_hi)}
-    for i in range(0, len(a0), 16000):
-        for row, sid in streams.items():
-            mgr.feed(sid, (a0, a1)[row][i:i + 16000])
-        mgr.poll()
-    fed1 = (len(a0) // 16000) * 16000
-    if 0 in streams:
-        mgr.finish(streams[0])
-    for _ in range(64):
-        if not any_across_hosts([0 in streams and not mgr.is_finished(streams[0])])[0]:
-            break
-        mgr.poll()
-    feeds, names = {}, {}
-    if 0 in streams:
-        check(mgr.is_finished(streams[0]), "[10a] mesh churn: row 0 never finished")
-        mgr.detach(streams[0])
-        check(mgr.attach() == streams[0], "[10a] mesh churn: the freed slot was not reused")
-        feeds[streams[0]], names[streams[0]] = a2, "c2"
-    if 1 in streams:
-        feeds[streams[1]], names[streams[1]] = a1[fed1:], "c1"
-    return {names[sid]: v for sid, v in _dp_serve(mgr, feeds).items()}
-
-
-# flow: (function, clips, pipeline_steps, global batch)
-DP_FLOWS = {"basic": (_dp_basic, "worker", 1, DP_BATCH),
-            "churn 1": (_dp_churn, "worker", 1, DP_BATCH),
-            "churn 2": (_dp_churn, "worker", 2, DP_BATCH),
-            "meshed": (_dp_meshed, "mesh", 1, 2),
-            "mesh churn": (_dp_mesh_churn, "mesh", 1, 2)}
-
-
-def _dp_rank(rank, world, n_data, flows, clips):
+def _dp_rank(rank, world, n_data, flows):
     """One rank of phase 10a: gloo over cuda:0, an (n_data, world / n_data)
     mesh, the seed-0 weights built on the card and sliced by the manager,
     each of MGR_MODES through `flows` with its launch counts (every count
@@ -3102,6 +2986,7 @@ def _dp_rank(rank, world, n_data, flows, clips):
     tp = global_mesh(n_data, world // n_data)
     cfg = _reduced_config()
     params = random_params(cfg, seed=0, device="cuda")
+    fns, _ = _dp_flows()
     out = dict(data=tp.data_rank, model=tp.model_rank)
     for mode, rings in MGR_MODES.items():
         if mode.startswith("q8"):
@@ -3109,26 +2994,19 @@ def _dp_rank(rank, world, n_data, flows, clips):
         _reset_counts()                          # this rank's DP path starts here
         res = {}
         for flow in flows:
-            fn, kind, depth, batch = DP_FLOWS[flow]
+            depth, batch = DP_FLOWS[flow]
             mgr = FleetManager(params, cfg, batch, chunk_tokens=DP_CHUNK, dec_ring=DP_RING,
                                pipeline_steps=depth, tp=tp, **rings)
-            res[flow] = dict(streams=fn(mgr, clips[kind]), steps=mgr.steps,
+            res[flow] = dict(streams=fns[flow](mgr), steps=mgr.steps,
                              rows=(mgr.row_lo, mgr.row_hi))
         out[mode] = dict(flows=res, launches=_counts())   # ... and ends
     return out
 
 
-def _dp_solo_clips(worker):
-    """Each stream of the churn flow as one clip: what it hears in all."""
-    solo = {0: worker[0], DP_REBORN: worker[DP_REBORN]}
-    solo.update({g: np.concatenate([worker[g], worker[1000 + g]]) for g in range(1, DP_BATCH)})
-    return solo
-
-
-def _dp_reference(clips):
+def _dp_reference():
     """One process on cuda, every flow of phase 10a in each of MGR_MODES
     (quantized: through _gap_recorder, for the gap rule). The churn flows'
-    reference is each stream alone (B = 1). {mode: {flow: ({name:
+    reference is each stream alone (B = 1). {mode: {flow: ({stream:
     (all_ids, gaps)}, steps)}}."""
     import torch
     from voxtral_tpu_torch.quant import quantize_params
@@ -3137,22 +3015,24 @@ def _dp_reference(clips):
     cfg = _reduced_config()
     params = random_params(cfg, seed=0, device="cuda")
     recorder = _gap_recorder()
+    fns, solo_audio = _dp_flows()
     ref = {}
     for mode, rings in MGR_MODES.items():
         if mode.startswith("q8"):
             params = quantize_params(params)
         cls = FleetManager if mode == "float" else recorder
 
-        def one(fn, kind_clips, batch):
+        def one(flow, batch, *args):
             mgr = cls(params, cfg, batch, chunk_tokens=DP_CHUNK, dec_ring=DP_RING, **rings)
-            return fn(mgr, kind_clips), mgr.steps
+            got = fns[flow](mgr, *args)
+            slot = DP_SLOTS.get(flow, {k: k for k in got})
+            return ({k: (v, None if cls is FleetManager else list(mgr.gaps[slot[k]]))
+                     for k, v in got.items()}, mgr.steps)
 
-        solo = {name: one(_dp_basic, {0: a}, 1)[0][0]
-                for name, a in _dp_solo_clips(clips["worker"]).items()}
-        ref[mode] = {"basic": one(_dp_basic, clips["worker"], DP_BATCH),
-                     "churn": (solo, None),
-                     "meshed": one(_dp_meshed, clips["mesh"], 2),
-                     "mesh churn": one(_dp_mesh_churn, clips["mesh"], 2)}
+        solo = {g: one("basic", 1, lambda _, a=a: a)[0][0]
+                for g, a in solo_audio().items()}
+        ref[mode] = {"basic": one("basic", DP_BATCH), "churn": (solo, None),
+                     "meshed": one("meshed", 2), "mesh churn": one("mesh churn", 2)}
     del params
     torch.cuda.empty_cache()
     return ref
@@ -3163,7 +3043,7 @@ def _dp_gather(layout, mode, flow, ranks):
     disjoint and complete, model ranks of a data index alike), the step
     counts (equal on every rank) and that the model ranks of a data index
     returned the same tokens. Returns ({name: all_ids}, steps)."""
-    batch = DP_FLOWS[flow][3]
+    batch = DP_FLOWS[flow][1]
     n_data = DP_LAYOUTS[layout][0]
     tag = f"[10a] {layout} {mode} {flow}"
     by_data, steps = {}, set()
@@ -3174,7 +3054,7 @@ def _dp_gather(layout, mode, flow, ranks):
         check(tuple(res["rows"]) == (d * per, (d + 1) * per),
               f"{tag}: data rank {d} serves rows {res['rows']}")
         steps.add(res["steps"])
-        streams = {k: v[0] for k, v in res["streams"].items()}
+        streams = res["streams"]
         if d in by_data:
             check(streams == by_data[d], f"{tag}: the model ranks of data rank {d} differ")
         by_data[d] = streams
@@ -3197,14 +3077,12 @@ def phase10a():
     Returns (main-path launches per kernel, K1-tp launches)."""
     from voxtral_tpu_torch.parallel.launch import run_ranks
     t0 = time.perf_counter()
-    clips = _dp_clips()
-    ref = _dp_reference(clips)
+    ref = _dp_reference()
     t_ref = time.perf_counter() - t0
     total, k1tp = dict.fromkeys(_counts(), 0), 0
     for layout, (n_data, n_model, flows) in DP_LAYOUTS.items():
         t1 = time.perf_counter()
-        ranks = run_ranks(_dp_rank, n_data * n_model, (n_data, flows, clips),
-                          timeout=DP_TIMEOUT)
+        ranks = run_ranks(_dp_rank, n_data * n_model, (n_data, flows), timeout=DP_TIMEOUT)
         t_ranks = time.perf_counter() - t1
         for mode in MGR_MODES:
             dec = "ring_gqa_attention" if mode == "float" else "ring_gqa_attention_int8"
@@ -3247,7 +3125,10 @@ def _dp_serve_rank(rank, world, cfg, clips, late):
     """One rank of phase 10b: gloo over cuda:0, a (2, 1) mesh, 8b's Q8 tree
     built on the card, this rank's rows of 8b's clips served twice
     (pipeline_steps 1 and 2) through _mgr_serve, each run with its launch
-    counts (0 just before, read just after), wall, steps and peak memory."""
+    counts (0 just before, read just after), wall, steps and peak memory;
+    then the mirror run (every one of 8b's clips on this rank too: 16
+    streams a rank, 32 in all, so each call holds 8b's rows) and, on rank
+    0, _row_count_probe."""
     import torch
     from voxtral_tpu_torch.parallel import global_mesh, host_row_range
     from voxtral_tpu_torch.quant import quantize_params
@@ -3261,10 +3142,10 @@ def _dp_serve_rank(rank, world, cfg, clips, late):
     build_peak = torch.cuda.max_memory_allocated() / 2**30
     lo, hi = host_row_range(tp, SERVE_B)
     mine = {i: clips[i] for i in range(lo, hi)}
+    kw = dict(chunk_tokens=SERVE_CHUNK, dec_ring=2048, kv_dtype="int8", enc_kv_dtype="int4")
     runs = []
     for depth in (1, 2):
-        mgr = FleetManager(params, cfg, SERVE_B, chunk_tokens=SERVE_CHUNK, dec_ring=2048,
-                           kv_dtype="int8", enc_kv_dtype="int4", pipeline_steps=depth, tp=tp)
+        mgr = FleetManager(params, cfg, SERVE_B, pipeline_steps=depth, tp=tp, **kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()                          # a DP serving run starts
@@ -3281,31 +3162,125 @@ def _dp_serve_rank(rank, world, cfg, clips, late):
                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                          launches=counts))
         del mgr
-    return dict(rank=rank, build_peak_gib=build_peak, runs=runs)
+    mgr = FleetManager(params, cfg, 2 * SERVE_B, tp=tp, **kw)
+    sids, _ = _mgr_serve(mgr, clips, late)
+    mirror = dict(ids=_mgr_ids(mgr, sids), steps=mgr.steps, rows=(mgr.row_lo, mgr.row_hi))
+    del mgr
+    probe = _row_count_probe(params, cfg) if rank == 0 else None
+    return dict(rank=rank, build_peak_gib=build_peak, runs=runs, mirror=mirror, probe=probe)
+
+
+def _case_rows(c, sl):
+    """The rows `sl` of a ring attention case (_fleet_case)."""
+    def cut(t):
+        return None if t is None else t[sl]
+    return {**c, "q": c["q"][sl], "rings": [tuple(map(cut, r)) for r in c["rings"]],
+            **{k: c[k][sl] for k in ("sp", "q_pos", "xk", "xv", "xp")}}
+
+
+def _row_count_probe(params, cfg):
+    """Which ops of the Q8 serving step give a row other bits when the
+    call holds a DP rank's 8 streams rather than one process's 16 (a
+    stream's tokens then follow its rank's share of the fleet): each
+    op on 16 streams' rows of seeded input against the same op on each
+    half, bit for bit, once two calls on the 16 have agreed (the op is
+    deterministic). Layer 0's weights of `params`; a 20-token chunk: 25600
+    samples of audio a stream for the device log-mel (f32 DFT and filter
+    products), 160 mel frames for the conv stem (f32 products), one row a
+    stream for the decoder's ops (every linear of layer 0: K2; the norm;
+    K3), 80 for the encoder's, 20 for the adapter's (every linear: the Q8
+    large-M route, torch.mm), bf16 but for the norms (f32 rows, whose
+    statistics' bits a bf16 output would round away); K1-int8 and K1-enc
+    on int8 and int4 rings at the fleet's shapes (_fleet_case). Returns
+    {op: (halves equal, max |diff| over max |out|)}."""
+    import torch
+    from voxtral_tpu_torch.ops import ring_attention as ra
+    from voxtral_tpu_torch.ops.linear import embed_logits, linear
+    from voxtral_tpu_torch.ops.logits_argmax import _dispatch
+    from voxtral_tpu_torch.ops.norms import rms_norm
+    from voxtral_tpu_torch.quant import Quantized
+    from voxtral_tpu_torch.runtime.fleet import _batched_causal_conv, _device_log_mel
+
+    def _in_features(w):
+        return (w.q if isinstance(w, Quantized) else w).shape[0]
+
+    enc, dec = params["encoder"]["layers"][0], params["decoder"]["layers"][0]
+    enc_p, e, d = params["encoder"], cfg.encoder.dim, cfg.decoder.dim
+    a, frames = cfg.audio, SERVE_CHUNK * 8
+    lap = a.window_size - a.hop_length
+    dev = params["decoder"]["norm"].device
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(*shape, dtype=cfg.compute_dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    f32 = dict(dtype=torch.float32)
+    b = SERVE_B
+    x_mel = rnd(b, lap + frames * a.hop_length, **f32)
+    x_c0, x_c1 = rnd(b, a.mel_bins, 2 + frames, **f32), rnd(b, e, 2 + frames, **f32)
+    x_dec, x_enc = rnd(b, d), rnd(b, 80, e)
+    x_dec32, x_enc32 = rnd(b, d, **f32), rnd(b, 80, e, **f32)
+    ops = {  # name: op on the rows `sl` of 16 streams' inputs
+        "device log-mel (f32 DFT, filters)":
+            lambda sl: _device_log_mel(cfg, x_mel[sl, :lap], x_mel[sl, lap:])[0],
+        "conv stem conv0 (f32 matmul)":
+            lambda sl: _batched_causal_conv(x_c0[sl], enc_p["conv0_w"], enc_p["conv0_b"], 1, 2),
+        "conv stem conv1 (f32 matmul)":
+            lambda sl: _batched_causal_conv(x_c1[sl], enc_p["conv1_w"], enc_p["conv1_b"], 2, 1),
+        # f32 rows: a bf16 output would hide the statistics' last bits
+        "rms_norm decoder (f32)": lambda sl: rms_norm(x_dec32[sl], dec["attn_norm"]),
+        "rms_norm encoder (f32)": lambda sl: rms_norm(x_enc32[sl], enc["attn_norm"]),
+        "K3 argmax (token, value)": lambda sl: torch.stack(
+            [t.float() for t in _dispatch(x_dec[sl], params["decoder"]["embed"], False, True)], 1),
+        "K3 logits": lambda sl: embed_logits(x_dec[sl], params["decoder"]["embed"])}
+    # every linear of layer 0: K2 in the decoder (one row a stream), the Q8
+    # large-M route (torch.mm) in the encoder and the adapter
+    for where, tree, rows in (("decoder", dec, 1), ("encoder", enc, 80),
+                              ("adapter", params["adapter"], 20)):
+        for name, w in tree.items():
+            if name[0] == "w" and not name.endswith("_b"):
+                x = rnd(b, rows, _in_features(w))
+                ops[f"{where} {name}"] = lambda sl, x=x, w=w: linear(x[sl], w)
+    # the ring kernels at the fleet's shapes: K1-int8 (decoder), K1-enc
+    # (int4 encoder rings)
+    for name, shape, ring, nv in (("K1-int8 decoder ring", FLEET_DEC, "int8", 500),
+                                  ("K1-enc int4 encoder ring", FLEET_ENC, "int4", 400)):
+        c = _fleet_case(shape, ring, b, nv, cfg.compute_dtype, 7, 1)
+        ops[name] = lambda sl, c=c: _ring_call(ra.ring_gqa_attention, _case_rows(c, sl))
+    out = {}
+    for name, op in ops.items():
+        full = op(slice(None))
+        check(torch.equal(full, op(slice(None))), f"[10b] probe {name}: two calls differ")
+        parts = torch.cat([op(slice(0, b // 2)), op(slice(b // 2, b))])
+        diff = (parts.float() - full.float()).abs().max().item()
+        out[name] = (torch.equal(parts, full), diff / full.float().abs().max().item())
+    return out
 
 
 def phase10b(serve_ref):
     """Full 4B width and depth, bf16, Q8 weights with int8 + int4 rings,
     chunk 20, dec_ring 2048: two ranks (data 2 x model 1) on cuda:0, 8
     streams each, serve phase 8b's 16 clips on 8b's schedule (the four late
-    ones all on rank 1), once with pipeline_steps 1 and once with 2. The
-    runs' tokens must be identical, each rank's tokens must agree with 8b's
-    run 0 (`serve_ref`: its result and tokens) on at least TP_BF16_AGREE of
-    them (phase 7's rule: a flip within bf16's rounding changes the rest of
-    its stream, so a stream's own share says where it flipped), the ranks
-    take equal steps. Logged beside 8b's one process:
-    aggregate audio-s/s (audio over the slowest rank's wall), per-rank
-    steps, step ms, host share and peak GiB. Returns the main-path
-    launches per kernel."""
+    ones all on rank 1), once with pipeline_steps 1 and once with 2; then
+    the mirror run, 16 streams a rank (every clip on both ranks), whose
+    calls hold 8b's 16 rows. Gates: the two runs' tokens identical, each
+    stream; every mirror stream of both ranks equal to 8b's run 0
+    (`serve_ref`: its result and tokens) token for token, in 8b's steps
+    (the agreed control, the lockstep cursor and gloo change no bit); each
+    rank's tokens of the first run at least TP_BF16_AGREE equal to 8b's run
+    0 (at 8 rows a call torch's mean in rms_norm sums a row in another
+    order, _row_count_probe on rank 0 logs it, and a stream flips at its
+    first near tie: each stream's share and first difference are logged);
+    rows partitioned; the ranks take equal steps. Logged beside
+    8b's one process: aggregate audio-s/s (audio over the slowest rank's
+    wall), per-rank steps, step ms, host share and peak GiB. Returns the
+    main-path launches per kernel."""
     import torch
     from voxtral_tpu_torch.config import voxtral_4b
     from voxtral_tpu_torch.parallel.launch import run_ranks
-    t0 = time.perf_counter()
     ref8b, ref_ids = serve_ref
     cfg = voxtral_4b(torch.bfloat16, torch.bfloat16)
-    clips = {i: synthetic_audio(4.0 + 8.0 * i / (SERVE_B - 1), 300 + i)
-             for i in range(SERVE_B)}
-    late = tuple(range(SERVE_B - SERVE_LATE, SERVE_B))
+    clips, late = _serve_clips()
     audio_s = sum(a.size for a in clips.values()) / cfg.audio.sample_rate
     ranks = run_ranks(_dp_serve_rank, 2, (cfg, clips, late), timeout=DP_TIMEOUT)
     kernels = ("ring_gqa_attention_int8", "ring_gqa_attention_enc", "w8a16_gemv",
@@ -3313,7 +3288,6 @@ def phase10b(serve_ref):
     total = dict.fromkeys(_counts(), 0)
     check([r["runs"][0]["rows"] for r in ranks] == [(0, SERVE_B // 2), (SERVE_B // 2, SERVE_B)],
           f"[10b] rows {[r['runs'][0]['rows'] for r in ranks]}")
-    agree = {}
     for k in range(2):
         runs = [r["runs"][k] for r in ranks]
         depth = runs[0]["pipeline_steps"]
@@ -3342,20 +3316,41 @@ def phase10b(serve_ref):
                         peak_gib=x["peak_gib"], build_peak_gib=r["build_peak_gib"],
                         launches={n: x["launches"][n] for n in kernels})
                    for r, x in zip(ranks, runs)])))
+    probe = ranks[0]["probe"]
+    log(f"[10b] ops of the step, rows of 8 streams a call against 16 (equal, max "
+        f"|diff| / max |out|): {json.dumps(probe)}; rounding rows apart: "
+        f"{sorted(k for k, (equal, _) in probe.items() if not equal)}")
+
+    def first_difference(x, y):
+        return next((k for k, (a, b) in enumerate(zip(x, y)) if a != b), min(len(x), len(y)))
+
+    for r in ranks:
+        m = r["mirror"]
+        check(m["rows"] == (SERVE_B * r["rank"], SERVE_B * (r["rank"] + 1)),
+              f"[10b] mirror rank {r['rank']}: rows {m['rows']}")
+        check(m["steps"] == ref8b["steps"],
+              f"[10b] mirror rank {r['rank']}: {m['steps']} steps, 8b {ref8b['steps']}")
+        for i, ids in m["ids"].items():
+            check(ids == ref_ids[i], f"[10b] mirror rank {r['rank']} stream {i} differs from "
+                                     f"8b's run 0 at token {first_difference(ids, ref_ids[i])}")
+    log(f"[10b] mirror run (16 streams a rank, 8b's rows a call): every stream of both "
+        f"ranks equal to 8b's run 0, {ranks[0]['mirror']['steps']} steps")
+    agree = {}
     for r in ranks:
         equal = tokens = 0
-        for i, got in r["runs"][0]["ids"].items():
+        for i, ids in r["runs"][0]["ids"].items():
             want = ref_ids[i]
-            n, same = max(len(got), len(want)), sum(a == b for a, b in zip(got, want))
-            first = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
-                         min(len(got), len(want)))
-            agree[i] = dict(share=same / n, tokens=n, first_difference=first if same < n else None)
+            n, same = max(len(ids), len(want)), sum(a == b for a, b in zip(ids, want))
+            agree[i] = dict(share=same / n, tokens=n,
+                            first_difference=first_difference(ids, want) if same < n else None)
             equal, tokens = equal + same, tokens + n
-        check(equal / tokens >= TP_BF16_AGREE, f"[10b] rank {r['rank']}: {equal / tokens} of its "
-                                                f"tokens equal 8b's < {TP_BF16_AGREE}")
         agree[f"rank {r['rank']}"] = equal / tokens
     log(f"[10b] tokens equal to 8b's run 0, each rank's share and each stream's (with its "
-        f"first difference): {json.dumps(agree)}; took {time.perf_counter() - t0:.1f} s")
+        f"first difference): {json.dumps(agree)}")
+    for r in ranks:
+        share = agree[f"rank {r['rank']}"]
+        check(share >= TP_BF16_AGREE, f"[10b] rank {r['rank']}: {share} of its tokens equal "
+                                      f"8b's < {TP_BF16_AGREE}")
     return total
 
 

@@ -29,7 +29,6 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_multihost import lively
 from voxtral_tpu_torch.config import tiny_config
 from voxtral_tpu_torch.parallel import any_across_hosts, global_mesh
 from voxtral_tpu_torch.parallel.launch import run_ranks
@@ -74,14 +73,22 @@ def serve_agreed(mgr, feeds, piece=16000):
     return {sid: list(mgr.slots[sid].all_ids) for sid in feeds}
 
 
-def churn(mgr, streams):
-    """tests/test_manager.py:632's slot churn. `streams`: the global rows
-    this process serves ({row: slot}: every row on one process, one row on
-    a data rank). Row 0 (audio a0) and row 1 (a1) are fed 1 s pieces; row 0
-    finishes, drains and is detached, and its slot takes a2 while row 1
-    goes on with the rest of a1. Returns {"a2": ..., "a1": ...}: all_ids of
-    the rows held here."""
+def meshed(mgr):
+    """tests/test_manager.py:248's flow on the rows held here: global row r
+    serves AUDIO["meshed"][r]. Returns {row: all_ids}."""
+    rows = {mgr.attach(): row for row in range(mgr.row_lo, mgr.row_hi)}
+    got = serve_agreed(mgr, {sid: AUDIO["meshed"][row] for sid, row in rows.items()})
+    return {row: got[sid] for sid, row in rows.items()}
+
+
+def churn(mgr):
+    """tests/test_manager.py:632's slot churn on the rows held here (both on
+    one process, one on a data rank). Row 0 (audio a0) and row 1 (a1) are
+    fed 1 s pieces; row 0 finishes, drains and is detached, and its slot
+    takes a2 while row 1 goes on with the rest of a1. Returns {"a2": ...,
+    "a1": ...}: all_ids of the rows held here."""
     a0, a1, a2 = AUDIO["churn"]
+    streams = {row: mgr.attach() for row in range(mgr.row_lo, mgr.row_hi)}
     for i in range(0, len(a0), 16000):
         for row, sid in streams.items():
             mgr.feed(sid, (a0, a1)[row][i:i + 16000])
@@ -115,16 +122,14 @@ def _rank_main(rank, world, params, q8_params):
     d = tp.data_rank
     out = {}
     mgr = FleetManager(params, cfg, **KW, device="cpu", tp=tp)
-    sid = mgr.attach()
     assert (mgr.row_lo, mgr.row_hi, mgr.local_batch) == (d, d + 1, 1)
-    got = serve_agreed(mgr, {sid: AUDIO["meshed"][d]})
-    out["meshed"] = ({mgr.row_lo: got[sid]}, mgr.steps)
+    out["meshed"] = (meshed(mgr), mgr.steps)
     mgr = FleetManager(q8_params, cfg, **KW, device="cpu", tp=tp)
     feeds = {mgr.attach(): AUDIO["q8"][0]} if d == 0 else {}
     got = serve_agreed(mgr, feeds)
     out["q8"] = ({0: got[0]} if d == 0 else {}, mgr.steps)
     mgr = FleetManager(params, cfg, **KW, device="cpu", tp=tp)
-    out["churn"] = (churn(mgr, {d: mgr.attach()}), mgr.steps)
+    out["churn"] = (churn(mgr), mgr.steps)
     return d, tp.model_rank, out
 
 
@@ -140,11 +145,9 @@ def _jax_refs(tree):
     cfg = jax_tiny_config()
     params = jax.tree.map(jnp.asarray, tree)
 
-    def meshed():
+    def meshed_one():
         mgr = JaxFleetManager(params, cfg, **KW)
-        sids = [mgr.attach(), mgr.attach()]
-        got = serve_agreed(mgr, dict(zip(sids, AUDIO["meshed"])))
-        return {row: got[sid] for row, sid in enumerate(sids)}, mgr.steps
+        return meshed(mgr), mgr.steps
 
     def q8():
         mgr = JaxFleetManager(jax_quantize_params(copy.deepcopy(params)), cfg,
@@ -154,7 +157,7 @@ def _jax_refs(tree):
 
     def slot_churn():
         mgr = JaxFleetManager(params, cfg, **KW)
-        return churn(mgr, {0: mgr.attach(), 1: mgr.attach()}), mgr.steps
+        return churn(mgr), mgr.steps
 
     def solo2():
         mgr = JaxFleetManager(params, cfg, **{**KW, "batch": 1})
@@ -163,7 +166,7 @@ def _jax_refs(tree):
 
     with concurrent.futures.ThreadPoolExecutor(4) as ex:
         fs = {name: ex.submit(fn) for name, fn in
-              (("meshed", meshed), ("q8", q8), ("churn", slot_churn), ("solo2", solo2))}
+              (("meshed", meshed_one), ("q8", q8), ("churn", slot_churn), ("solo2", solo2))}
         return {name: f.result() for name, f in fs.items()}
 
 
@@ -171,9 +174,10 @@ def _jax_refs(tree):
 def runs():
     """({case: (streams, steps)} gathered over the ranks, the JAX
     references)."""
+    from test_torch_manager import _lively
     from voxtral_tpu.config import tiny_config as jax_tiny_config
     from voxtral_tpu.weights import random_params as jax_random_params
-    tree = lively(jax_random_params(jax_tiny_config(), 1234, numpy_out=True))
+    tree = _lively(jax_random_params(jax_tiny_config(), 1234, numpy_out=True))
     params = from_numpy_params(tree, "cpu")
     q8_params = quantize_params(from_numpy_params(tree, "cpu"))
     with concurrent.futures.ThreadPoolExecutor(2) as ex:

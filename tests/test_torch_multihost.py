@@ -43,23 +43,14 @@ KW = dict(batch=mw.BATCH, chunk_tokens=8, dec_ring=256, continuous=True, kv_dtyp
 TIMEOUT = 240.0
 
 
-def lively(tree):
-    """A numpy param tree with the embedding rows normalized and the adapter
-    amplified (tests/test_torch_manager.py:_lively), so that greedy tokens
-    follow the audio: on the plain seeded tree every stream repeats one
-    control token, and equal tokens would say little."""
-    emb = np.asarray(tree["decoder"]["embed"], np.float32)
-    emb = emb / np.linalg.norm(emb, axis=1, keepdims=True) * 0.05
-    adapter = {k: np.asarray(v, np.float32) * 4.0 for k, v in tree["adapter"].items()}
-    return {**tree, "adapter": adapter, "decoder": {**tree["decoder"], "embed": emb}}
-
-
-def _basic_flow(mgr):
+def basic_flow(mgr, audio_of=mw.stream_audio):
     """tests/multihost_worker.py's basic flow: every local row a stream of
-    the worker's audio, finished at once, drained in agreed polls."""
+    `audio_of(global row)`, finished at once, drained in agreed polls (on
+    one process the agreement is the identity, so the JAX manager runs it
+    too). Returns {global row: all_ids}."""
     sids = [mgr.attach() for _ in range(mgr.local_batch)]
     for sid in sids:
-        mgr.feed(sid, mw.stream_audio(mgr.row_lo + sid))
+        mgr.feed(sid, audio_of(mgr.row_lo + sid))
         mgr.finish(sid)
     while True:
         mgr.poll()
@@ -67,6 +58,16 @@ def _basic_flow(mgr):
         if not any_across_hosts(np.array([pending]))[0]:
             break
     return {mgr.row_lo + sid: list(mgr.slots[sid].all_ids) for sid in sids}
+
+
+def solo_audio():
+    """Each stream of the worker's churn flow as one clip: what it hears
+    in all ({0, REBORN_SEED, 1-3: audio})."""
+    solo = {0: mw.stream_audio(0), mw.REBORN_SEED: mw.stream_audio(mw.REBORN_SEED)}
+    for g in range(1, mw.BATCH):
+        solo[g] = np.concatenate([mw.stream_audio(g),
+                                  mw.stream_audio(1000 + g, mw.EXTRA_SECONDS)])
+    return solo
 
 
 def _rank_main(rank, world, params):
@@ -84,7 +85,7 @@ def _rank_main(rank, world, params):
         except ValueError:
             out["refused"].append(kw)
     mgr = FleetManager(params, cfg, **KW, device="cpu", tp=tp)
-    out["basic"] = (_basic_flow(mgr), mgr.steps, (mgr.row_lo, mgr.row_hi, mgr.local_batch))
+    out["basic"] = (basic_flow(mgr), mgr.steps, (mgr.row_lo, mgr.row_hi, mgr.local_batch))
     for depth in (1, 2):
         mgr = FleetManager(params, cfg, **KW, pipeline_steps=depth, device="cpu", tp=tp)
         streams = mw.churn_flow(mgr, np, any_across_hosts)
@@ -92,19 +93,13 @@ def _rank_main(rank, world, params):
     return out
 
 
-def _jax_fleet(params, audios, batch):
-    """JAX single-process manager: {i: all_ids} of `audios`, each attached,
-    fed whole and finished at once, and its step count."""
+def _jax_fleet(params, audio_of, batch):
+    """JAX single-process manager through basic_flow: {row: all_ids} of
+    `batch` streams of `audio_of(row)`, and its step count."""
     from voxtral_tpu.config import tiny_config as jax_tiny_config
     from voxtral_tpu.runtime.manager import FleetManager as JaxFleetManager
     with JaxFleetManager(params, jax_tiny_config(), **{**KW, "batch": batch}) as ref:
-        sids = [ref.attach() for _ in audios]
-        for sid, a in zip(sids, audios):
-            ref.feed(sid, a)
-            ref.finish(sid)
-        while not all(ref.is_finished(s) for s in sids):
-            ref.poll()
-        return {i: list(ref.slots[s].all_ids) for i, s in enumerate(sids)}, ref.steps
+        return basic_flow(ref, audio_of), ref.steps
 
 
 @pytest.fixture(scope="module")
@@ -113,20 +108,18 @@ def runs():
     "basic" the 4-stream fleet, "solo" each churn stream alone."""
     import jax
     import jax.numpy as jnp
+    from test_torch_manager import _lively
     from voxtral_tpu.config import tiny_config as jax_tiny_config
     from voxtral_tpu.weights import random_params as jax_random_params
-    tree = lively(jax_random_params(jax_tiny_config(), 0, numpy_out=True))
+    tree = _lively(jax_random_params(jax_tiny_config(), 0, numpy_out=True))
     jparams = jax.tree.map(jnp.asarray, tree)
-    churn = {0: mw.stream_audio(0), mw.REBORN_SEED: mw.stream_audio(mw.REBORN_SEED)}
-    for g in (1, 2, 3):
-        churn[g] = np.concatenate([mw.stream_audio(g),
-                                   mw.stream_audio(1000 + g, mw.EXTRA_SECONDS)])
+    churn = solo_audio()
     with concurrent.futures.ThreadPoolExecutor(2 + len(churn)) as ex:
         ranks = ex.submit(run_ranks, _rank_main, 2, (from_numpy_params(tree, "cpu"),),
                           TIMEOUT)
-        basic = ex.submit(_jax_fleet, jparams,
-                          [mw.stream_audio(g) for g in range(mw.BATCH)], mw.BATCH)
-        solo = {g: ex.submit(_jax_fleet, jparams, [a], 1) for g, a in churn.items()}
+        basic = ex.submit(_jax_fleet, jparams, mw.stream_audio, mw.BATCH)
+        solo = {g: ex.submit(_jax_fleet, jparams, lambda _, a=a: a, 1)
+                for g, a in churn.items()}
         return dict(ranks=ranks.result(), basic=basic.result(),
                     solo={g: f.result()[0][0] for g, f in solo.items()})
 
@@ -175,6 +168,36 @@ def test_init_distributed_picks_gloo_without_cuda():
         np.testing.assert_array_equal(any_across_hosts([False, True]), [False, True])
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("hosts, ranks_per_host, cards, backend", [
+    (1, 2, 2, "nccl"), (1, 2, 1, "gloo"), (1, 2, 0, "gloo"), (2, 2, 2, "nccl"),
+    (2, 2, 1, "gloo")])
+def test_init_distributed_backend_follows_the_cards_of_this_host(
+        monkeypatch, hosts, ranks_per_host, cards, backend):
+    """NCCL when this host has a card for each of its ranks (LOCAL_WORLD_SIZE
+    across hosts, the world on one host), else gloo; under NCCL the world's
+    gloo group that any_across_hosts runs on is made beside it. The group
+    calls are recorded, not made."""
+    import voxtral_tpu_torch.parallel.distributed as d
+    calls = []
+    monkeypatch.setattr(d.torch.cuda, "is_available", lambda: cards > 0)
+    monkeypatch.setattr(d.torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(d.dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(d.dist, "new_group",
+                        lambda backend: calls.append(("new_group", backend)) or "control")
+    monkeypatch.setattr(d, "_CONTROL", None)
+    if hosts > 1:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", str(ranks_per_host))
+    else:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    world = hosts * ranks_per_host
+    d.init_distributed("10.0.0.1:29500", world, world - 1)
+    assert calls[0] == (backend, dict(init_method="tcp://10.0.0.1:29500", world_size=world,
+                                      rank=world - 1))
+    assert calls[1:] == ([("new_group", "gloo")] if backend == "nccl" else [])
+    assert d._CONTROL == ("control" if backend == "nccl" else None)
 
 
 def test_any_across_hosts_is_the_identity_on_one_process():

@@ -18,13 +18,17 @@ The JAX module's `put_local_rows` and `fetch_local_rows` (:90-124) build
 and read global arrays placed over processes; here a rank's tensors hold
 only its own rows already, so they have no counterpart.
 
-Backends: NCCL when each rank has its own card; gloo on the CPU or when
-ranks share one card (NCCL refuses two ranks on one GPU; gloo stages CUDA
-tensors through the host). The control agreement always runs on a gloo
-group over the world, on CPU tensors.
+Backends: NCCL when this host has a card for each of its ranks; gloo on
+the CPU or when ranks share a card (NCCL refuses two ranks on one GPU;
+gloo stages CUDA tensors through the host). The control agreement always
+runs on a gloo group over the world, on CPU tensors: the default group
+when it is gloo, else one that `init_distributed` makes beside the NCCL
+group.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -32,23 +36,26 @@ import torch.distributed as dist
 
 from voxtral_tpu_torch.parallel.sharding import TensorParallel, make_mesh
 
-_CONTROL = None            # (the default group it was made for, a gloo group)
+_CONTROL = None            # the world's gloo group beside an NCCL default group
 
 
-def init_distributed(coordinator_address: str, num_processes: int, process_id: int, *,
-                     backend: str | None = None):
+def init_distributed(coordinator_address: str, num_processes: int, process_id: int):
     """Join the process group: `coordinator_address` is rank 0's
-    "host:port" (a "tcp://" prefix is optional). backend None: NCCL when
-    CUDA has a card for each local rank, else gloo. Call once per process,
-    before any collective."""
-    if backend is None:
-        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        backend = "nccl" if cards >= num_processes else "gloo"
+    "host:port" (a "tcp://" prefix is optional). NCCL when CUDA has a card
+    for each rank on this host, else gloo. The ranks on this host are
+    LOCAL_WORLD_SIZE (torchrun sets it), else the whole world. Under NCCL
+    it also makes the gloo group over the world that `any_across_hosts`
+    runs on. Call once per process, before any collective."""
+    global _CONTROL
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    backend = "nccl" if cards >= local else "gloo"
     addr = coordinator_address
     if not addr.startswith("tcp://"):
         addr = "tcp://" + addr
     dist.init_process_group(backend, init_method=addr, world_size=num_processes,
                             rank=process_id)
+    _CONTROL = dist.new_group(backend="gloo") if backend == "nccl" else None
 
 
 def global_mesh(n_data: int | None = None, n_model: int = 1,
@@ -77,27 +84,14 @@ def host_row_range(tp: TensorParallel, batch: int) -> tuple[int, int]:
     return tp.data_rank * rows, (tp.data_rank + 1) * rows
 
 
-def _control_group():
-    """The gloo group the agreement runs on: the default group when it is
-    gloo, else one gloo group over the world, made once per default group
-    (every rank reaches the first agreement at the same point, so every
-    rank makes it there)."""
-    global _CONTROL
-    if dist.get_backend() == "gloo":
-        return None
-    if _CONTROL is None or _CONTROL[0] is not dist.group.WORLD:
-        _CONTROL = (dist.group.WORLD, dist.new_group(backend="gloo"))
-    return _CONTROL[1]
-
-
-def any_across_hosts(flags, group=None) -> np.ndarray:
-    """Elementwise OR of a small bool vector over every rank of `group`
-    (None: the world): one all-reduce (MAX) of a uint8 CPU tensor on a
-    gloo group. The identity with one rank or without a process group."""
+def any_across_hosts(flags) -> np.ndarray:
+    """Elementwise OR of a small bool vector over every rank of the world:
+    one all-reduce (MAX) of a uint8 CPU tensor on a gloo group (the
+    default group, or the one `init_distributed` made beside NCCL). The
+    identity with one rank or without a process group."""
     flags = np.asarray(flags, bool)
-    if not dist.is_initialized() or dist.get_world_size(group) == 1:
+    if not dist.is_initialized() or dist.get_world_size() == 1:
         return flags
     t = torch.from_numpy(flags.astype(np.uint8))
-    dist.all_reduce(t, op=dist.ReduceOp.MAX,
-                    group=_control_group() if group is None else group)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_CONTROL)
     return t.numpy().astype(bool)

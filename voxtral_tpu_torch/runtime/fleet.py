@@ -255,21 +255,28 @@ def _frame_index(a: AudioConfig, t: int, device: str):
     return torch.from_numpy(idx).to(device)
 
 
+def _power_mel(frames, cosm, sinm, filt):
+    """One stream's windowed frames [T, window] -> mel power [T, mel]."""
+    re = frames @ cosm                                          # [T, freq]
+    im = frames @ sinm
+    return (re * re + im * im) @ filt
+
+
 def _device_log_mel(cfg: VoxtralConfig, pcm_tail, pcm):
     """pcm_tail: [B, window-hop], pcm: [B, T*hop] f32 -> (mel [B, mel_bins,
     T], new_tail). Frame t covers concat(tail, pcm)[t*hop : t*hop+window]:
     the math of audio/mel.py:batch_log_mel (windowed framing, DFT as f32
-    products, Slaney filters)."""
+    products, Slaney filters). The products run one stream at a time: a
+    product over all B x T frames rounds a row apart as B changes (cuBLAS
+    picks its kernel by shape), and a stream's tokens would then follow the
+    fleet's size, a data rank's share of it included."""
     a = cfg.audio
     t = pcm.shape[1] // a.hop_length
     dev = str(pcm.device)
     hann, cosm, sinm, filt = _mel_tables(a, dev)
     x = torch.cat([pcm_tail, pcm], dim=1)                       # [B, lap + T*hop]
     frames = x[:, _frame_index(a, t, dev)] * hann[None, None]   # [B, T, window]
-    re = frames @ cosm                                          # [B, T, freq]
-    im = frames @ sinm
-    power = re * re + im * im
-    mel = power @ filt                                          # [B, T, mel]
+    mel = torch.stack([_power_mel(f, cosm, sinm, filt) for f in frames])   # [B, T, mel]
     log_spec = torch.log10(torch.clamp(mel, min=1e-10))
     log_spec = torch.clamp(log_spec, min=a.log_mel_max - 8.0)
     mel_out = ((log_spec + 4.0) / 4.0).transpose(1, 2)          # [B, mel, T]

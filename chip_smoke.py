@@ -50,7 +50,12 @@ Phases (any failure raises and the script exits non-zero):
      checked and B % G != 0 refused. K1-tp: K1, K1-int8 (m = 2 and 8 ranks)
      and K1-enc (int4 and int8 rings, m = 2) on each rank's head slice,
      and the whole call, against the plain version, and each slice
-     against the same lanes of the whole call, at the fleet shapes.
+     against the same lanes of the whole call, at the fleet shapes. K4
+     (rms_norm) at the decoder's [1, 3072] and [16, 3072] and the encoder
+     chunk's [1280, 1280], f32 and bf16, timed beside F.rms_norm, two
+     launches bit for bit; a row's bits equal in calls of 1, 8 and 16 rows
+     and of all 1280, at both widths and dtypes; a bf16 weight, 3-D,
+     strided and misaligned x, odd widths (the scalar path) and no rows.
   2. Offline, reduced depth (2 encoder + 2 decoder layers), full 4B width,
      f32: transcribe_tokens_batch on cuda (kernels) and on cpu (plain
      versions) must give equal tokens and best logits, with float weights
@@ -89,7 +94,7 @@ Phases (any failure raises and the script exits non-zero):
      drive on one process, and in bf16 on float rings, held to a share of
      equal tokens and to the rings' distance from one process (TP_BF16_*);
      each rank must launch its decode ring kernel,
-     K1-enc, K3 and, on Q8 weights, K2 (their sum over ranks of the ring
+     K1-enc, K3, K4 and, on Q8 weights, K2 (their sum over ranks of the ring
      kernels is K1-tp's launches).
   8. The serving runtime, FleetManager, on the card (runtime/manager.py).
      8a: full width, 2 + 2 layers, f32, B = 4, chunk 8 tokens, dec_ring
@@ -106,8 +111,8 @@ Phases (any failure raises and the script exits non-zero):
      sixteen clips of 4-12 s (four attached after the first poll) fed in
      1 s pieces, finished and drained, twice with pipeline_steps = 1 and
      once with 2; every stream must finish, the three runs give the same
-     tokens, and each launches K1-int8, K1-enc, K2 and K3. Logged: audio-s/s
-     through the manager, steps, the poll wall beside stats()'s
+     tokens, and each launches K1-int8, K1-enc, K2, K3 and K4. Logged:
+     audio-s/s through the manager, steps, the poll wall beside stats()'s
      step_ms_total (the host share), the mean step wall beside phase 5's
      direct step, peak memory, and the device busy share of a one-step
      poll (profiled in the second run, over the first run's wall of it).
@@ -129,9 +134,9 @@ Phases (any failure raises and the script exits non-zero):
      read back) through transcribe_audio (auto: fused on float rings), the
      bucketed backend and the fused backend on phase 8b's Q8 tree with
      int8 + int4 rings, each twice with identical tokens and its kernels'
-     launches checked (bucketed and auto: K1, K1-enc, K3; Q8: K1-int8,
-     K1-enc, K2, K3); logged: RTF, ms per generated token, peak memory and
-     the device busy share of two profiled 1 s feeds. 9c: `python3 -m
+     launches checked (bucketed and auto: K1, K1-enc, K3, K4; Q8: K1-int8,
+     K1-enc, K2, K3, K4); logged: RTF, ms per generated token, peak memory and
+     the device busy share of a profiled 1 s feed that steps. 9c: `python3 -m
      voxtral_tpu_torch.cli --random-init 0 --silent` as two subprocesses,
      `-i` the WAV and `--stdin` with its bytes: exit 0, and stdout is 9b's
      transcribe_audio text.
@@ -147,16 +152,17 @@ Phases (any failure raises and the script exits non-zero):
      own. Every stream against one process on the card
      (float rings: equal; quantized: phase 4's gap rule); the rows
      partitioned disjointly and completely, equal step counts on every
-     rank, and each rank launches its decode ring kernel, K1-enc, K3 and,
+     rank, and each rank launches its decode ring kernel, K1-enc, K3, K4 and,
      on Q8 weights, K2 (the model-2 ranks' ring launches are K1-tp's).
      10b: full 4B width and depth, bf16, 8b's Q8 + int8 + int4 serving
      default, data 2 x model 1, 8 streams a rank: 8b's 16 clips on 8b's
      schedule (the four late ones on rank 1), with pipeline_steps 1 and 2;
      the two runs' tokens identical; the mirror run (16 streams a rank, so
      every call holds 8b's rows) equal to 8b's run 0 on every stream, in
-     8b's steps; each rank's tokens at least TP_BF16_AGREE equal to 8b's
-     run 0 (each stream's share logged; a probe on rank 0 logs which ops
-     round a row apart at 8 rows a call against 16), equal step counts;
+     8b's steps; a probe on rank 0 finds no op that rounds a row apart at
+     8 rows a call against 16, and every stream of both ranks' first run
+     equals 8b's run 0 (each rank's share, at least TP_BF16_AGREE, and each
+     stream's logged), equal step counts;
      logged beside
      8b's one process: aggregate audio-s/s, per-rank steps, step ms, host
      share and peak memory (no claim: the two ranks time-slice one card).
@@ -1473,6 +1479,152 @@ def phase1_tp():
 
 
 # ---------------------------------------------------------------------------
+# Phase 1, K4: the fixed-order RMSNorm
+# ---------------------------------------------------------------------------
+
+# Where the main path calls rms_norm: the decoder's token step (B rows of
+# 3072) and the encoder's chunk (B x 80 rows of 1280), at B 1 and 16.
+K4_SHAPES = {"decode B=1": (1, 3072), "decode B=16": (16, 3072),
+             "encoder chunk B=16": (16 * 80, 1280)}
+K4_EPS = 1e-5
+K4_GATE_ROWS = 1280                   # the rows of a gate call; parts of 1, 8, 16
+
+
+def _k4_inputs(rows, d, dtype, seed, copies=1, w_dtype=None):
+    """Seeded x [rows, d] (N(0, 1) x 3) in `dtype`, `copies` of it, and w [d]
+    = 1 + N(0, 0.1) in `w_dtype` (default f32, the model's norm weights)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    xs = [(torch.randn(rows, d, generator=g, device="cuda") * 3).to(dtype)
+          for _ in range(copies)]
+    w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(w_dtype or torch.float32)
+    return xs, w
+
+
+def _k4_check(x, w, what):
+    """K4 on x against rms_norm_plain, once launched and counted: f32 within
+    1e-5 of max|out| (another order of the f32 sum of squares), bf16 within
+    `_bf16_tol` (that, plus one bf16 ulp: the order can move a value across
+    a rounding boundary). Returns (out, err, tol)."""
+    import torch
+    from voxtral_tpu_torch.ops import norms
+    y = _launched(norms, "rms_norm", lambda: norms.rms_norm(x, w, K4_EPS))
+    ref = norms.rms_norm_plain(x, w, K4_EPS)
+    torch.cuda.synchronize()
+    check(y.shape == x.shape and y.dtype == x.dtype, f"{what}: {y.shape} {y.dtype}")
+    check(torch.isfinite(y).all().item(), f"{what}: non-finite output")
+    mx = ref.float().abs().max().item()
+    err = (y.float() - ref.float()).abs().max().item()
+    tol = _bf16_tol(mx) if x.dtype == torch.bfloat16 else 1e-5 * mx
+    check(err <= tol, f"{what}: err {err} > tol {tol}")
+    return y, err, tol
+
+
+def _k4_row(name, rows, d, dtype, seed):
+    """K4 at a main-path shape: checked, two launches bit for bit, then the
+    kernel's, the plain version's (nine launches) and F.rms_norm's times
+    over copies beyond the L2. F.rms_norm with the f32 weight is the same
+    function (`library_ms`; on a bf16 x torch leaves its fused kernel for the
+    composite one); with the weight in x's dtype it takes torch's fused
+    kernel (`library_fused_ms`; the weight rounded, so not the same
+    numbers). Bound: x read and out written once, w once; 4 f32 operations
+    an element."""
+    import torch
+    import torch.nn.functional as F
+    from voxtral_tpu_torch.ops import norms
+    copies = _l2_copies(2 * rows * d * dtype.itemsize)
+    xs, w = _k4_inputs(rows, d, dtype, seed, copies)
+    what = f"K4 rms_norm {name} [{rows}, {d}] {dtype}"
+    y, err, tol = _k4_check(xs[0], w, what)
+    y2 = _launched(norms, "rms_norm", lambda: norms.rms_norm(xs[0], w, K4_EPS))
+    torch.cuda.synchronize()
+    check(torch.equal(y, y2), f"{what}: two launches differ")
+    lib = F.rms_norm(xs[0], (d,), w, K4_EPS)
+    lib_err = (lib.float() - norms.rms_norm_plain(xs[0], w, K4_EPS).float()).abs().max().item()
+    check(lib_err <= tol, f"{what}: F.rms_norm err {lib_err} > tol {tol}")
+    wx = w.to(dtype)
+    bytes_ms, ops_ms, bound_ms, bound_by = _bound(
+        2 * rows * d * dtype.itemsize + 4 * d, 4 * rows * d, torch.float32)
+    row = dict(kernel="rms_norm", shape=name, rows=rows, d=d, dtype=str(dtype),
+               max_abs_err=err, tol=tol, library_err=lib_err,
+               ms=cuda_ms(lambda i: norms.rms_norm(xs[i % copies], w, K4_EPS), 50),
+               plain_ms=cuda_ms(lambda i: norms.rms_norm_plain(xs[i % copies], w, K4_EPS), 20),
+               library_ms=cuda_ms(lambda i: F.rms_norm(xs[i % copies], (d,), w, K4_EPS), 50),
+               library="torch.nn.functional.rms_norm (f32 weight)",
+               library_fused_ms=cuda_ms(
+                   lambda i: F.rms_norm(xs[i % copies], (d,), wx, K4_EPS), 50),
+               bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
+    _shares(row)
+    log(f"[1] {what}: {json.dumps(row)}")
+    return row
+
+
+def _k4_row_count_gate(d, dtype, seed):
+    """K4 on x [1280, d] in one call, then on parts of it of 1, 8 and 16
+    rows (first, middle, last) in calls of their own: every part must have
+    the whole call's bits. The plain version and F.rms_norm (f32 weight,
+    and the weight in x's dtype) run the same parts; whether their rows
+    keep their bits is logged, not gated. Returns the log entry."""
+    import torch
+    import torch.nn.functional as F
+    from voxtral_tpu_torch.ops import norms
+    (x,), w = _k4_inputs(K4_GATE_ROWS, d, dtype, seed)
+    wx = w.to(dtype)
+    fns = {"K4": lambda t: norms.rms_norm(t, w, K4_EPS),
+           "plain": lambda t: norms.rms_norm_plain(t, w, K4_EPS),
+           "F.rms_norm": lambda t: F.rms_norm(t, (d,), w, K4_EPS),
+           "F.rms_norm (weight in x's dtype)": lambda t: F.rms_norm(t, (d,), wx, K4_EPS)}
+    out = {}
+    for name, fn in fns.items():
+        full = fn(x)
+        out[name] = all(torch.equal(fn(x[lo:lo + n]), full[lo:lo + n])
+                        for n in (1, 8, 16) for lo in (0, K4_GATE_ROWS // 2 - n, K4_GATE_ROWS - n))
+    check(out["K4"], f"K4 [{K4_GATE_ROWS}, {d}] {dtype}: a part of 1, 8 or 16 rows has "
+                     "other bits than the same rows in the whole call")
+    return {"d": d, "dtype": str(dtype), "rows_keep_their_bits": out}
+
+
+def phase1_norm():
+    """K4 at the main path's shapes (decoder [1, 3072] and [16, 3072], the
+    encoder chunk [1280, 1280]; f32 and bf16, each timed), the row-count
+    gate at both widths and dtypes, then the edges: a bf16 weight, 3-D x, a
+    strided x (h[:, 0] of [B, 2, D]), a contiguous view one element off
+    alignment, odd widths on the scalar path (1001 f32 and bf16, 100 bf16),
+    and no rows (no launch). Returns the rows."""
+    import torch
+    from voxtral_tpu_torch.ops import norms
+    rows = []
+    for i, (name, (n, d)) in enumerate(K4_SHAPES.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(_k4_row(name, n, d, dtype, 900 + i))
+    gates = [_k4_row_count_gate(d, dtype, 910 + j)
+             for j, d in enumerate((3072, 1280)) for dtype in (torch.float32, torch.bfloat16)]
+    log(f"[1] K4 rows in calls of 1, 8 and 16 rows against the whole {K4_GATE_ROWS}: "
+        f"{json.dumps(gates)}")
+    for dtype in (torch.float32, torch.bfloat16):
+        (x,), w = _k4_inputs(16, 3072, dtype, 920, w_dtype=torch.bfloat16)
+        cases = {"bf16 weight": (x, w), "3-D x": (x.reshape(2, 8, 3072), w.float())}
+        (x2,), _ = _k4_inputs(32, 3072, dtype, 921)
+        cases["strided rows"] = (x2.reshape(16, 2, 3072)[:, 0], w.float())
+        flat = x2.reshape(-1)
+        cases["misaligned rows"] = (flat[1:1 + 8 * 3072].view(8, 3072), w.float())
+        for d in (1001, 100) if dtype == torch.bfloat16 else (1001,):
+            (xo,), wo = _k4_inputs(24, d, dtype, 922 + d)
+            cases[f"odd width {d}"] = (xo, wo)
+        for case, (xc, wc) in cases.items():
+            what = f"K4 edge {case} {tuple(xc.shape)} {dtype} (weight {wc.dtype})"
+            _, err, tol = _k4_check(xc, wc, what)
+            rows.append(dict(kernel="rms_norm", edge=case, dtype=str(dtype), max_abs_err=err,
+                             tol=tol))
+            log(f"[1] {what}: err {err} <= tol {tol}")
+    before = norms.LAUNCHES["rms_norm"]
+    empty = norms.rms_norm(torch.empty(0, 3072, device="cuda"), torch.ones(3072, device="cuda"))
+    check(empty.shape == (0, 3072) and norms.LAUNCHES["rms_norm"] == before,
+          "K4 with no rows launched")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the tools path
 # ---------------------------------------------------------------------------
 
@@ -1697,8 +1849,8 @@ def phase7():
     Q8 weights with int8 + int4 rings, and in bf16 on float rings, a
     bootstrap and TP_STEPS steps, against the same drive on one process:
     f32 tokens exactly, bf16 tokens and rings within TP_BF16_AGREE and
-    TP_BF16_RINGS. Each rank must launch its decode ring kernel, K1-enc and
-    K3 (and K2 on Q8 weights). Returns (the ranks' ring attention launches,
+    TP_BF16_RINGS. Each rank must launch its decode ring kernel, K1-enc, K3
+    and K4 (and K2 on Q8 weights). Returns (the ranks' ring attention launches,
     {mode: per-rank step walls})."""
     import torch
     from voxtral_tpu_torch.parallel.launch import run_ranks
@@ -1735,7 +1887,8 @@ def phase7():
                           f"process, bf16 from f32; shares of max|ref|) {json.dumps(dists)}")
             q8 = ring.startswith("q8")
             check(counts[dec] > 0 and counts["ring_gqa_attention_enc"] > 0
-                  and counts["fused_logits_argmax"] > 0 and (counts["w8a16_gemv"] > 0) == q8,
+                  and counts["fused_logits_argmax"] > 0 and counts["rms_norm"] > 0
+                  and (counts["w8a16_gemv"] > 0) == q8,
                   f"TP {mode} rank {r}: launches {counts}")
             k1tp += sum(counts[k] for k in ring_kernels)
             walls[mode][f"rank{r}"] = res[mode]["walls"]
@@ -1757,11 +1910,12 @@ def _count_modules():
     from voxtral_tpu_torch.ops import bf16_matmul as bm
     from voxtral_tpu_torch.ops import layout_attention as lay
     from voxtral_tpu_torch.ops import logits_argmax as la
+    from voxtral_tpu_torch.ops import norms
     from voxtral_tpu_torch.ops import q8_matmul as qm
     from voxtral_tpu_torch.ops import read_ceiling as rc
     from voxtral_tpu_torch.ops import ring_attention as ra
     from voxtral_tpu_torch.ops import ring_layout as rl
-    return ra, qm, la, rc, bm, lay, rl
+    return ra, qm, la, rc, bm, lay, rl, norms
 
 
 def _reset_counts():
@@ -1773,9 +1927,9 @@ def _reset_counts():
 def _counts():
     """{kernel: launches} of every kernel, and "q8_mm": the Q8 large-M
     route's calls (not a kernel)."""
-    ra, qm, la, rc, bm, lay, rl = _count_modules()
+    ra, qm, la, rc, bm, lay, rl, norms = _count_modules()
     return {**ra.LAUNCHES, **qm.LAUNCHES, **la.LAUNCHES, **rc.LAUNCHES, **bm.LAUNCHES,
-            **lay.LAUNCHES, **rl.LAUNCHES, **qm.LARGE_M_CALLS}
+            **lay.LAUNCHES, **rl.LAUNCHES, **norms.LAUNCHES, **qm.LARGE_M_CALLS}
 
 
 def phase2():
@@ -1933,7 +2087,8 @@ def profile_request(params, cfg, audio, wall_s, steps):
             rows.append((e.self_device_time_total, e.count, e.key))
     rows.sort(reverse=True)
     total_us = sum(r[0] for r in rows)
-    ring_us = sum(r[0] for r in rows if "ring_partial" in r[2] or "ring_merge" in r[2])
+    ring_us = sum(r[0] for r in rows if "ring_partial" in r[2] or "ring_merge" in r[2]
+                  or "ring_dec_" in r[2])
     gemv_us = sum(r[0] for r in rows if "nvjet" in r[2] or "splitKreduce" in r[2])
     # Per stage: the kernels launched inside the stage's range (CPU-side
     # event with its children), and on the device timeline the span from
@@ -2145,7 +2300,10 @@ def phase5():
             def launches(n_dec, n_enc, n_prefill):
                 """Per run of n_dec decode tokens, n_enc K1-enc calls and
                 n_prefill prefilled streams: the decode ring kernel per
-                layer and token, K3 per token; in Q8 mode K2 for the 7
+                layer and token, K3 per token; K4 twice per decoder layer
+                and token or prefilled stream, once more per token (the
+                final norm), twice per K1-enc call and once more per
+                encoder chunk; in Q8 mode K2 for the 7
                 matrices per decoder layer and token or prefilled stream
                 (M = 16 or 38 rows), the large-M route for the encoder's 7
                 per K1-enc call (B x 80 rows) and the adapter's 2."""
@@ -2153,6 +2311,8 @@ def phase5():
                 want[dec_kernel] += layers_d * n_dec
                 want["ring_gqa_attention_enc"] += n_enc
                 want["fused_logits_argmax"] += n_dec
+                want["rms_norm"] += ((2 * layers_d + 1) * n_dec + 2 * layers_d * n_prefill
+                                     + (2 * layers_e + 1) * (n_enc // layers_e))
                 if q8:
                     want["w8a16_gemv"] += 7 * layers_d * (n_dec + n_prefill)
                     want["q8_mm"] += 7 * n_enc + 2
@@ -2213,10 +2373,19 @@ def phase5():
     return total, results
 
 
+def _device_activities():
+    """The profiler activities of the step, poll and feed profiles."""
+    from torch.profiler import ProfilerActivity
+    return [ProfilerActivity.CUDA]
+
+
 def _device_rows(prof):
     """Kernel rows of a profile, (self device us, count, name), largest
     first: CPU op ranges and annotations projected onto the device timeline
-    repeat their kernels' time and are left out."""
+    repeat their kernels' time and are left out. The step, poll and feed
+    profiles record device activity only (`_device_activities`): kernel
+    rows are all they read, and recording every CPU op made a profiled step
+    several times slower and its processing about three times longer."""
     from torch.autograd import DeviceType
     avgs = prof.key_averages()
     cpu_keys = {e.key for e in avgs if e.device_type == DeviceType.CPU}
@@ -2232,9 +2401,9 @@ def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, m
     stream of work, so kernels do not overlap) and the ring kernels' time.
     The rings are updated in place; `state` is not used again."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     from voxtral_tpu_torch.runtime import fleet as fl
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=_device_activities()) as prof:
         fl.fleet_step_masked(params, cfg, state, pcm, active, forced, t_ada)
         torch.cuda.synchronize()
     rows = _device_rows(prof)
@@ -2246,12 +2415,17 @@ def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, m
                   or "gemm" in r[2].lower() and "w8a16" not in r[2])
     k2_us = sum(r[0] for r in rows if "w8a16_" in r[2])
     k3_us = sum(r[0] for r in rows if "logits_kernel" in r[2] or "logits_mma_kernel" in r[2])
+    k4_us = sum(r[0] for r in rows if "rms_norm_kernel" in r[2])
+    elt_us = sum(r[0] for r in rows if "elementwise_kernel" in r[2])
+    red_us = sum(r[0] for r in rows if "reduce_kernel" in r[2])
     share = total_us / 1e6 / wall_s
     log(f"[5] profile {mode} (aged state): device busy {total_us / 1e3:.3f} ms of "
         f"{wall_s * 1e3:.2f} ms unprofiled wall (share {share:.4f}); K1-enc "
         f"{enc_us / 1e3:.3f} ms; decode ring kernel {dec_us / 1e3:.3f} ms; "
         f"cuBLAS GEMM rows {gemm_us / 1e3:.3f} ms; K2 (w8a16) {k2_us / 1e3:.3f} ms; "
-        f"K3 (fused logits argmax) {k3_us / 1e3:.3f} ms")
+        f"K3 (fused logits argmax) {k3_us / 1e3:.3f} ms; K4 (rms_norm) {k4_us / 1e3:.3f} "
+        f"ms; torch elementwise kernels {elt_us / 1e3:.3f} ms; torch reductions "
+        f"{red_us / 1e3:.3f} ms")
     for us, count, key in rows[:10]:
         log(f"[5]   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
     return share
@@ -2456,7 +2630,7 @@ def phase8b(total, direct):
     clips, late = _serve_clips()
     audio_s = sum(a.size for a in clips.values()) / cfg.audio.sample_rate
     kernels = ("ring_gqa_attention_int8", "ring_gqa_attention_enc", "w8a16_gemv",
-               "fused_logits_argmax")
+               "fused_logits_argmax", "rms_norm")
     ids, walls, results = [], [], []
     profiled = {}
     for rep, depth in ((0, 1), (1, 1), (2, 2)):
@@ -2521,8 +2695,8 @@ def _profiled_poll(mgr):
     """mgr.poll() under torch.profiler: its steps and device busy ms (kernel
     rows only), with the main kernels' shares."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from torch.profiler import profile
+    with profile(activities=_device_activities()) as prof:
         steps = mgr.poll()
         torch.cuda.synchronize()
     rows = _device_rows(prof)
@@ -2613,7 +2787,10 @@ def phase8(direct):
 # Phase 9: VoxStream, transcribe_audio and the CLI
 # ---------------------------------------------------------------------------
 
-STREAM_PROFILED_FEEDS = (6, 6)     # first, last 1 s feed profiled in a repeat
+# The 1 s feed (first, last) profiled in a repeat, per backend: one that
+# steps. At the 2 s interval the bucketed backend steps on even feeds and
+# the fused one on odd feeds.
+STREAM_PROFILED_FEEDS = {"auto": (7, 7), "bucketed": (6, 6), "fused q8+int8+int4": (7, 7)}
 
 
 def _timed_stream():
@@ -2622,7 +2799,7 @@ def _timed_stream():
     feeds `profiled` (first, last index), under one torch.profiler session
     (kernel rows only)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
     from voxtral_tpu_torch.runtime import VoxStream
 
     class TimedStream(VoxStream):
@@ -2638,8 +2815,7 @@ def _timed_stream():
             k = len(self.walls)
             t0 = time.perf_counter()
             if self.profiled and k == self.profiled[0]:
-                self._prof = profile(activities=[ProfilerActivity.CPU,
-                                                 ProfilerActivity.CUDA])
+                self._prof = profile(activities=_device_activities())
                 self._prof.start()
             super().feed(samples)
             if self.device.type == "cuda":
@@ -2783,7 +2959,8 @@ def phase9b(total, q8_params, cfg):
     clip (written as a 16-bit WAV and read back: the CLI's input) through
     transcribe_audio (auto: fused on float rings), the bucketed backend and
     the fused backend on phase 8b's Q8 tree with int8 + int4 rings; each
-    twice with identical tokens, the second run profiling the 1 s feed 6.
+    twice with identical tokens, the second run profiling a 1 s feed that
+    steps (STREAM_PROFILED_FEEDS).
     Adds the launches to `total`. Returns the WAV path's directory, the
     path and transcribe_audio's text."""
     import os
@@ -2809,17 +2986,18 @@ def phase9b(total, q8_params, cfg):
     audio = load_wav(path)
     audio_s = audio.size / cfg.audio.sample_rate
     timed = _timed_stream()
-    want = {"auto": ("ring_gqa_attention", "ring_gqa_attention_enc", "fused_logits_argmax"),
+    want = {"auto": ("ring_gqa_attention", "ring_gqa_attention_enc", "fused_logits_argmax",
+                     "rms_norm"),
             "bucketed": ("ring_gqa_attention", "ring_gqa_attention_enc",
-                         "fused_logits_argmax"),
+                         "fused_logits_argmax", "rms_norm"),
             "fused q8+int8+int4": ("ring_gqa_attention_int8", "ring_gqa_attention_enc",
-                                   "w8a16_gemv", "fused_logits_argmax")}
+                                   "w8a16_gemv", "fused_logits_argmax", "rms_norm")}
     text = None
     results = {}
     for backend in want:
         ids = []
         for rep in range(2):
-            timed.profiled = STREAM_PROFILED_FEEDS if rep else ()
+            timed.profiled = STREAM_PROFILED_FEEDS[backend] if rep else ()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()                          # a main-path run starts
@@ -2859,9 +3037,11 @@ def phase9b(total, q8_params, cfg):
                          stats=s.stats(), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                          launches={k: got_counts[k] for k in want[backend]})
             else:
-                first, last = STREAM_PROFILED_FEEDS
+                first, last = STREAM_PROFILED_FEEDS[backend]
+                check(s.busy_ms > 0, f"[9b] {backend}: profiled feeds {first}-{last} ran "
+                                     "nothing on the card")
                 prof_wall = sum(walls0[first:last + 1])
-                r.update(profiled_feeds=list(STREAM_PROFILED_FEEDS),
+                r.update(profiled_feeds=[first, last],
                          busy_ms=s.busy_ms, busy_share=s.busy_ms / (1e3 * prof_wall),
                          profiled_feeds_wall_ms=1e3 * prof_wall)
         check(ids[0] == ids[1], f"[9b] {backend}: tokens differ between the two runs")
@@ -3102,7 +3282,8 @@ def phase10a():
             for r in ranks:
                 counts = r[mode]["launches"]
                 check(counts[dec] > 0 and counts["ring_gqa_attention_enc"] > 0
-                      and counts["fused_logits_argmax"] > 0 and (counts["w8a16_gemv"] > 0) == q8,
+                      and counts["fused_logits_argmax"] > 0 and counts["rms_norm"] > 0
+                      and (counts["w8a16_gemv"] > 0) == q8,
                       f"[10a] {layout} {mode} rank ({r['data']}, {r['model']}): "
                       f"launches {counts}")
                 for k, v in counts.items():
@@ -3187,12 +3368,13 @@ def _row_count_probe(params, cfg):
     deterministic). Layer 0's weights of `params`; a 20-token chunk: 25600
     samples of audio a stream for the device log-mel (f32 DFT and filter
     products), 160 mel frames for the conv stem (f32 products), one row a
-    stream for the decoder's ops (every linear of layer 0: K2; the norm;
-    K3), 80 for the encoder's, 20 for the adapter's (every linear: the Q8
-    large-M route, torch.mm), bf16 but for the norms (f32 rows, whose
-    statistics' bits a bf16 output would round away); K1-int8 and K1-enc
-    on int8 and int4 rings at the fleet's shapes (_fleet_case). Returns
-    {op: (halves equal, max |diff| over max |out|)}."""
+    stream for the decoder's ops (every linear of layer 0: K2; the norm,
+    K4; K3), 80 for the encoder's, 20 for the adapter's (every linear: the
+    Q8 large-M route, torch.mm), bf16; the norms also on f32 rows, whose
+    statistics' bits a bf16 output would round away (torch's mean, which
+    K4 replaced, rounded the decoder's apart at 8 rows against 16); K1-int8
+    and K1-enc on int8 and int4 rings at the fleet's shapes (_fleet_case).
+    Returns {op: (halves equal, max |diff| over max |out|)}."""
     import torch
     from voxtral_tpu_torch.ops import ring_attention as ra
     from voxtral_tpu_torch.ops.linear import embed_logits, linear
@@ -3227,9 +3409,11 @@ def _row_count_probe(params, cfg):
             lambda sl: _batched_causal_conv(x_c0[sl], enc_p["conv0_w"], enc_p["conv0_b"], 1, 2),
         "conv stem conv1 (f32 matmul)":
             lambda sl: _batched_causal_conv(x_c1[sl], enc_p["conv1_w"], enc_p["conv1_b"], 2, 1),
-        # f32 rows: a bf16 output would hide the statistics' last bits
+        # f32 rows too: a bf16 output would hide the statistics' last bits
         "rms_norm decoder (f32)": lambda sl: rms_norm(x_dec32[sl], dec["attn_norm"]),
         "rms_norm encoder (f32)": lambda sl: rms_norm(x_enc32[sl], enc["attn_norm"]),
+        "rms_norm decoder (bf16)": lambda sl: rms_norm(x_dec[sl], dec["attn_norm"]),
+        "rms_norm encoder (bf16)": lambda sl: rms_norm(x_enc[sl], enc["attn_norm"]),
         "K3 argmax (token, value)": lambda sl: torch.stack(
             [t.float() for t in _dispatch(x_dec[sl], params["decoder"]["embed"], False, True)], 1),
         "K3 logits": lambda sl: embed_logits(x_dec[sl], params["decoder"]["embed"])}
@@ -3266,11 +3450,12 @@ def phase10b(serve_ref):
     calls hold 8b's 16 rows. Gates: the two runs' tokens identical, each
     stream; every mirror stream of both ranks equal to 8b's run 0
     (`serve_ref`: its result and tokens) token for token, in 8b's steps
-    (the agreed control, the lockstep cursor and gloo change no bit); each
-    rank's tokens of the first run at least TP_BF16_AGREE equal to 8b's run
-    0 (at 8 rows a call torch's mean in rms_norm sums a row in another
-    order, _row_count_probe on rank 0 logs it, and a stream flips at its
-    first near tie: each stream's share and first difference are logged);
+    (the agreed control, the lockstep cursor and gloo change no bit);
+    _row_count_probe on rank 0 finds no op of the step that rounds a row
+    apart at 8 rows a call against 16 (torch's mean in rms_norm did, until
+    K4); so every stream of both ranks' first run (8 streams a rank) equals
+    8b's run 0 token for token, and each rank's share of equal tokens (each
+    stream's share and first difference logged) is at least TP_BF16_AGREE;
     rows partitioned; the ranks take equal steps. Logged beside
     8b's one process: aggregate audio-s/s (audio over the slowest rank's
     wall), per-rank steps, step ms, host share and peak GiB. Returns the
@@ -3284,7 +3469,7 @@ def phase10b(serve_ref):
     audio_s = sum(a.size for a in clips.values()) / cfg.audio.sample_rate
     ranks = run_ranks(_dp_serve_rank, 2, (cfg, clips, late), timeout=DP_TIMEOUT)
     kernels = ("ring_gqa_attention_int8", "ring_gqa_attention_enc", "w8a16_gemv",
-               "fused_logits_argmax")
+               "fused_logits_argmax", "rms_norm")
     total = dict.fromkeys(_counts(), 0)
     check([r["runs"][0]["rows"] for r in ranks] == [(0, SERVE_B // 2), (SERVE_B // 2, SERVE_B)],
           f"[10b] rows {[r['runs'][0]['rows'] for r in ranks]}")
@@ -3317,9 +3502,9 @@ def phase10b(serve_ref):
                         launches={n: x["launches"][n] for n in kernels})
                    for r, x in zip(ranks, runs)])))
     probe = ranks[0]["probe"]
+    apart = sorted(k for k, (equal, _) in probe.items() if not equal)
     log(f"[10b] ops of the step, rows of 8 streams a call against 16 (equal, max "
-        f"|diff| / max |out|): {json.dumps(probe)}; rounding rows apart: "
-        f"{sorted(k for k, (equal, _) in probe.items() if not equal)}")
+        f"|diff| / max |out|): {json.dumps(probe)}; rounding rows apart: {apart}")
 
     def first_difference(x, y):
         return next((k for k, (a, b) in enumerate(zip(x, y)) if a != b), min(len(x), len(y)))
@@ -3351,6 +3536,13 @@ def phase10b(serve_ref):
         share = agree[f"rank {r['rank']}"]
         check(share >= TP_BF16_AGREE, f"[10b] rank {r['rank']}: {share} of its tokens equal "
                                       f"8b's < {TP_BF16_AGREE}")
+    check(not apart, f"[10b] ops rounding rows apart at 8 rows a call against 16: {apart}")
+    for r in ranks:
+        for i, ids in r["runs"][0]["ids"].items():
+            check(ids == ref_ids[i], f"[10b] rank {r['rank']} stream {i} differs from 8b's run "
+                                     f"0 at token {first_difference(ids, ref_ids[i])}")
+    log("[10b] every stream of both ranks (8 a rank) equal to 8b's run 0; no op rounds "
+        "rows apart")
     return total
 
 
@@ -3411,7 +3603,7 @@ def ceiling_shares(rows):
 # What each path must launch: the serving path (phases 3, 5, 8, 9b and 10;
 # q8_mm is the Q8 large-M route, not a kernel) and the tools path (phase 6).
 MAIN_PATH = ("ring_gqa_attention", "ring_gqa_attention_int8", "ring_gqa_attention_enc",
-             "w8a16_gemv", "fused_logits_argmax", "q8_mm")
+             "w8a16_gemv", "fused_logits_argmax", "rms_norm", "q8_mm")
 TOOLS_PATH = ("wread", "pure_stream", "bf16_matmul", "rd", "w8a16_gemv",
               "fused_logits_argmax", "attn8", "attn4", "attn3d", "attn4d", "rd_flat",
               "rd_blockmajor", "rd_g")
@@ -3442,7 +3634,7 @@ def main() -> int:
     phase0()
     rows = (phase1() + phase1_fleet() + phase1_dec_edges() + phase1_edges() + phase1_q8()
             + phase1_tools()
-            + phase1_layout() + phase1_ring_layout() + phase1_tp())
+            + phase1_layout() + phase1_ring_layout() + phase1_tp() + phase1_norm())
     ceiling_shares(rows)
     log(f"[1] done at {time.perf_counter() - t_start:.1f} s")
     phase2()
@@ -3487,6 +3679,10 @@ def main() -> int:
                       "voxtral_tpu/ops/linear.py:25-29", dict(b=16, matrix="w1/w3")),
         _kernel_entry(rows, launches, "fused_logits_argmax", "logits_argmax.cu",
                       "tools/profile_logits.py:57", dict(b=16, table="int8", mode="argmax")),
+        # K4 has no Pallas counterpart: it replaces an XLA fusion; its numbers
+        # are the decoder's token step at B 16 in bf16
+        _kernel_entry(rows, launches, "rms_norm", "rms_norm.cu", "voxtral_tpu/ops/norms.py:14",
+                      dict(rows=16, d=3072, dtype="torch.bfloat16")),
         # the tools path's kernels, with their launches there (phase 6)
         _kernel_entry(rows, tool_launches, "wread", "read_ceiling.cu",
                       "tools/profile_q8_matmul_roofline.py:85", dict(matrix="w1/w3")),

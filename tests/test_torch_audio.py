@@ -10,6 +10,9 @@ import struct
 
 import numpy as np
 import pytest
+import torch
+
+from conftest import load_fixture
 
 import voxtral_tpu.audio.mic as jax_mic
 import voxtral_tpu_torch.audio.mic as port_mic
@@ -21,6 +24,8 @@ from voxtral_tpu_torch.audio import mel as port_mel
 from voxtral_tpu_torch.audio import wav as port_wav
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+torch.set_num_threads(2)
 
 
 def _feeds(seed, sizes, scale=0.3):
@@ -275,3 +280,26 @@ def test_mic_loop_matches_jax(monkeypatch):
     assert logs[1] == logs[0]
     events = logs[0][0]
     assert ("flush",) in events and events[-1] == ("finish",)
+
+
+@pytest.mark.parametrize("clip,fixture", [("padded", "mel_padded"), ("audio", "mel")])
+def test_batch_log_mel_device_matches_jax_and_the_fixture(clip, fixture):
+    """batch_log_mel_device on the CPU against batch_log_mel_jax, the host
+    batch_log_mel and the reference's mel, within tests/test_mel.py's
+    tolerance (f32 products in another order)."""
+    g = load_fixture("mel.npz")
+    ours = port_mel.batch_log_mel_device(g[clip], device="cpu")
+    assert ours.dtype == torch.float32 and ours.device.type == "cpu"
+    got = ours.numpy()
+    for ref in (np.asarray(jax_mel.batch_log_mel_jax(g[clip])),
+                port_mel.batch_log_mel(g[clip]), g[fixture]):
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-4)
+    again = port_mel.batch_log_mel_device(torch.from_numpy(g[clip]), device="cpu")
+    assert torch.equal(again, ours)
+
+
+def test_batch_log_mel_device_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_mel.batch_log_mel_device(np.zeros(3200, np.float32))

@@ -15,6 +15,7 @@ import torch
 from voxtral_tpu.config import tiny_config as jax_tiny_config
 from voxtral_tpu.weights import params_to_safetensors, save_safetensors
 from voxtral_tpu.weights import random_params as jax_random_params
+from voxtral_tpu_torch import weights as port_weights
 from voxtral_tpu_torch.config import tiny_config
 from voxtral_tpu_torch.utils import resolve_device
 from voxtral_tpu_torch.weights import (
@@ -62,6 +63,39 @@ def test_safetensors_roundtrip_is_bit_identical(tmp_path, bf16):
         assert loaded[name].dtype == t.dtype, name
         assert torch.equal(_bits(loaded[name]), _bits(t)), name
     assert direct[".decoder.embed"].dtype == (torch.bfloat16 if bf16 else torch.float32)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_params_to_safetensors_writes_the_jax_file(tmp_path, bf16):
+    """The port's params_to_safetensors, given the port's tree or the numpy
+    tree, writes the JAX package's file byte for byte, and load_params
+    reads the tree back."""
+    jcfg, cfg = jax_tiny_config(), tiny_config()
+    if bf16:
+        import jax.numpy as jnp
+        jcfg, cfg = jcfg.with_dtype(jnp.bfloat16), cfg.with_dtype(torch.bfloat16)
+    tree = jax_random_params(jcfg, 99, numpy_out=True)
+    port_tree = from_numpy_params(tree, "cpu")
+    paths = [os.path.join(tmp_path, f"{n}.safetensors") for n in ("jax", "port", "numpy")]
+    params_to_safetensors(tree, jcfg, paths[0])
+    port_weights.params_to_safetensors(port_tree, cfg, paths[1])
+    port_weights.params_to_safetensors(tree, cfg, paths[2])
+    blobs = [open(p, "rb").read() for p in paths]
+    assert blobs[1] == blobs[0] and blobs[2] == blobs[0]
+    loaded = dict(_leaves(load_params(paths[1], cfg, device="cpu")))
+    direct = dict(_leaves(port_tree))
+    assert loaded.keys() == direct.keys()
+    for name, t in direct.items():
+        assert loaded[name].dtype == t.dtype, name
+        assert torch.equal(_bits(loaded[name]), _bits(t)), name
+
+
+def test_params_to_safetensors_refuses_q8_leaves(tmp_path):
+    from voxtral_tpu_torch.quant import quantize_params
+    cfg = tiny_config()
+    q8 = quantize_params(random_params(cfg, seed=0, device="cpu"))
+    with pytest.raises(TypeError, match="float trees"):
+        port_weights.params_to_safetensors(q8, cfg, os.path.join(tmp_path, "q8.safetensors"))
 
 
 def test_from_numpy_params_keeps_bf16_bits():

@@ -26,7 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("ring_attention.cu", "ring_attention_enc.cu", "w8a16.cu",
            "logits_argmax.cu", "read_ceiling.cu", "bf16_matmul.cu", "layout_attention.cu",
-           "ring_layout.cu")
+           "ring_layout.cu", "rms_norm.cu")
 HEADERS = ("ring_common.cuh", "mma_common.cuh")   # included by the sources
 
 _loaded: dict[str, ctypes.CDLL] = {}

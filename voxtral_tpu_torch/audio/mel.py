@@ -1,10 +1,10 @@
-"""Log-mel spectrogram frontend (Slaney filters, Whisper-style framing), host
-numpy version.
+"""Log-mel spectrogram frontend (Slaney filters, Whisper-style framing).
 
-A copy of the numpy part of `voxtral_tpu/audio/mel.py`: the batch log-mel
-and the incremental `MelStream` (the port keeps its own: the JAX module
-imports the JAX package's config). Semantics match the ground-truth
-pipeline (python_simple_implementation.py:102-157) and the C incremental
+A copy of `voxtral_tpu/audio/mel.py`: the host batch log-mel, its device
+form `batch_log_mel_device` (the counterpart of `batch_log_mel_jax`, f32
+torch products) and the incremental `MelStream` (the port keeps its own:
+the JAX module imports the JAX package's config). Semantics match the
+ground-truth pipeline (python_simple_implementation.py:102-157) and the C incremental
 context (voxtral_audio.c:400-662):
 
 - STFT: periodic Hann window 400, hop 160, center=True with reflect padding,
@@ -22,8 +22,10 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from voxtral_tpu_torch.config import AudioConfig, StreamingConfig
+from voxtral_tpu_torch.utils import resolve_device
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +140,47 @@ def batch_log_mel(audio: np.ndarray, cfg: AudioConfig = AudioConfig()) -> np.nda
     log_spec = np.log10(np.maximum(mel, 1e-10))
     log_spec = np.maximum(log_spec, cfg.log_mel_max - 8.0)
     return (((log_spec + 4.0) / 4.0).T).astype(np.float32)          # [128, F]
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_tables(a: AudioConfig, device: str):
+    """Hann window, DFT and Slaney filter tables on `device`, built once."""
+    cosm, sinm = dft_matrices(a)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                 for x in (hann_window(a.window_size), cosm, sinm,
+                           mel_filters(a)))
+
+
+@functools.lru_cache(maxsize=8)
+def _frame_index(a: AudioConfig, t: int, device: str):
+    idx = (a.hop_length * np.arange(t)[:, None]
+           + np.arange(a.window_size)[None, :])                 # [T, window]
+    return torch.from_numpy(idx).to(device)
+
+
+def _power_mel(frames, cosm, sinm, filt):
+    """One stream's windowed frames [T, window] -> mel power [T, mel]."""
+    re = frames @ cosm                                          # [T, freq]
+    im = frames @ sinm
+    return (re * re + im * im) @ filt
+
+
+def batch_log_mel_device(audio, cfg: AudioConfig = AudioConfig(), *,
+                         device="cuda") -> torch.Tensor:
+    """batch_log_mel on `device`: audio [N] (numpy or a tensor, already
+    padded) -> f32 [mel_bins, frames] there. The reflect pad, Hann-windowed
+    framing, then the DFT and filter products as f32 matmuls of the one
+    clip (its rows do not follow a batch), log10, clamp and scale.
+    `device` defaults to "cuda" and raises without CUDA."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(audio).to(dev, torch.float32)
+    half = cfg.window_size // 2
+    padded = torch.cat([x[1:half + 1].flip(0), x, x[-half - 1:-1].flip(0)])
+    hann, cosm, sinm, filt = _mel_tables(cfg, str(dev))
+    frames = padded[_frame_index(cfg, _frame_count(x.shape[0], cfg), str(dev))] * hann
+    log_spec = torch.log10(torch.clamp(_power_mel(frames, cosm, sinm, filt), min=1e-10))
+    log_spec = torch.clamp(log_spec, min=cfg.log_mel_max - 8.0)
+    return ((log_spec + 4.0) / 4.0).T.contiguous()              # [128, F]
 
 
 # ---------------------------------------------------------------------------

@@ -26,15 +26,14 @@ per-stream tables of the state they are given.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from voxtral_tpu_torch.audio.mel import dft_matrices, hann_window, mel_filters
-from voxtral_tpu_torch.config import AudioConfig, VoxtralConfig
+from voxtral_tpu_torch.audio.mel import _frame_index, _mel_tables, _power_mel
+from voxtral_tpu_torch.config import VoxtralConfig
 from voxtral_tpu_torch.models.adapter import adapter_forward
 from voxtral_tpu_torch.models.decoder import (
     SLOT_INVALID, DecodeState, decode_scan, decoder_prefill, init_decode_state,
@@ -237,29 +236,6 @@ def pcm_stream(padded: np.ndarray, cfg: VoxtralConfig):
     """Padded audio (pad_audio_offline output) -> the stream to feed
     fleet_*_pcm. Drops the zero skew prefix (see pcm_stream_skew)."""
     return padded[..., pcm_stream_skew(cfg):]
-
-
-@functools.lru_cache(maxsize=8)
-def _mel_tables(a: AudioConfig, device: str):
-    """Hann window, DFT and Slaney filter tables on `device`, built once."""
-    cosm, sinm = dft_matrices(a)
-    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
-                 for x in (hann_window(a.window_size), cosm, sinm,
-                           mel_filters(a)))
-
-
-@functools.lru_cache(maxsize=8)
-def _frame_index(a: AudioConfig, t: int, device: str):
-    idx = (a.hop_length * np.arange(t)[:, None]
-           + np.arange(a.window_size)[None, :])                 # [T, window]
-    return torch.from_numpy(idx).to(device)
-
-
-def _power_mel(frames, cosm, sinm, filt):
-    """One stream's windowed frames [T, window] -> mel power [T, mel]."""
-    re = frames @ cosm                                          # [T, freq]
-    im = frames @ sinm
-    return (re * re + im * im) @ filt
 
 
 def _device_log_mel(cfg: VoxtralConfig, pcm_tail, pcm):

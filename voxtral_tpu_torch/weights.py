@@ -326,6 +326,47 @@ def from_numpy_params(tree, device="cuda"):
     return walk(tree)
 
 
+def params_to_safetensors(params: dict, cfg: VoxtralConfig, path: str) -> None:
+    """Write a float param tree (the port's torch tensors on any device, or
+    numpy arrays) back to reference-layout safetensors, every tensor f32:
+    conv weights [K, I, O] -> [O, I, K], linear weights transposed. The
+    same file as `voxtral_tpu/weights.py:params_to_safetensors` writes for
+    the same values."""
+    t: dict[str, np.ndarray] = {}
+    enc, dec, ada = params["encoder"], params["decoder"], params["adapter"]
+
+    def f32(arr) -> np.ndarray:
+        if isinstance(arr, Quantized):
+            raise TypeError("params_to_safetensors writes float trees; dequantize Q8 leaves")
+        if isinstance(arr, torch.Tensor):
+            return arr.detach().to("cpu", torch.float32).numpy()
+        return np.asarray(arr, dtype=np.float32)
+
+    def put(name, arr, transpose):
+        a = f32(arr)
+        t[name] = a.T if transpose else a
+
+    def put_conv(name, arr):
+        t[name] = f32(arr).transpose(2, 1, 0)            # [K, I, O] -> [O, I, K]
+
+    put_conv(f"{ENC_PREFIX}.conv_layers.0.conv.weight", enc["conv0_w"])
+    put(f"{ENC_PREFIX}.conv_layers.0.conv.bias", enc["conv0_b"], False)
+    put_conv(f"{ENC_PREFIX}.conv_layers.1.conv.weight", enc["conv1_w"])
+    put(f"{ENC_PREFIX}.conv_layers.1.conv.bias", enc["conv1_b"], False)
+    for i in range(cfg.encoder.layers):
+        for key, (name, transpose) in encoder_layer_names(i).items():
+            put(name, enc["layers"][i][key], transpose)
+    put(f"{ENC_PREFIX}.transformer.norm.weight", enc["norm"], False)
+    put(f"{ADA_PREFIX}.0.weight", ada["w0"], True)
+    put(f"{ADA_PREFIX}.2.weight", ada["w1"], True)
+    put(EMB_NAME, dec["embed"], False)
+    for i in range(cfg.decoder.layers):
+        for key, (name, transpose) in decoder_layer_names(i).items():
+            put(name, dec["layers"][i][key], transpose)
+    put("norm.weight", dec["norm"], False)
+    save_safetensors(path, t)
+
+
 # ---------------------------------------------------------------------------
 # Random init (synthetic runs; value-independent performance)
 # ---------------------------------------------------------------------------

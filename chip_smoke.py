@@ -53,9 +53,15 @@ Phases (any failure raises and the script exits non-zero):
      against the same lanes of the whole call, at the fleet shapes. K4
      (rms_norm) at the decoder's [1, 3072] and [16, 3072] and the encoder
      chunk's [1280, 1280], f32 and bf16, timed beside F.rms_norm, two
-     launches bit for bit; a row's bits equal in calls of 1, 8 and 16 rows
-     and of all 1280, at both widths and dtypes; a bf16 weight, 3-D,
-     strided and misaligned x, odd widths (the scalar path) and no rows.
+     launches bit for bit; its fused entry (add_rms_norm: residual add,
+     norm, ada scale) at the same shapes with and without the scale, equal
+     bit for bit in both outputs to the unfused chain on the card (torch
+     add, K4, torch mul), timed beside that chain and the library chain
+     (torch add, F.rms_norm, torch mul); a row's bits equal in calls of 1,
+     8 and 16 rows and of all 1280, at both widths and dtypes, for K4 and
+     for both outputs of the fused entry; a bf16 weight, 3-D, strided and
+     misaligned x, odd widths (the scalar path), rows of four vectors a
+     thread and no rows, for both.
   2. Offline, reduced depth (2 encoder + 2 decoder layers), full 4B width,
      f32: transcribe_tokens_batch on cuda (kernels) and on cpu (plain
      versions) must give equal tokens and best logits, with float weights
@@ -76,8 +82,10 @@ Phases (any failure raises and the script exits non-zero):
      enc_ring 840, each mode (the Q8 mode from quantize_params of the bf16
      tree, last): bootstrap, 5 steps, one step on an aged state (both rings
      read whole), run twice (tokens identical), with every kernel's
-     launches (and the Q8 large-M route's calls) checked per step and one
-     profiled step.
+     launches (and the Q8 large-M route's calls) checked per step (K4: one
+     rms_norm and 52 add_rms_norm a token, one and 64 an encoder chunk) and
+     one profiled step (its kernels' ms and launches, torch's elementwise
+     kernels among them).
   6. The tools path: the six ported profile tools at their defaults
      (voxtral_tpu_torch.tools: the Q8 roofline through K2, T1 and K3; the
      bf16 weight stream through torch.matmul, T2 and T3; the ring read
@@ -1559,6 +1567,106 @@ def _k4_row(name, rows, d, dtype, seed):
     return row
 
 
+def _k4_scale(d, dtype, seed):
+    """The decoder's ada row at width d: 1 + N(0, 0.1) cast to x's dtype
+    (the call sites add 1 in that dtype)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    return 1.0 + (0.1 * torch.randn(d, generator=g, device="cuda")).to(dtype)
+
+
+def _k4_add_check(h, delta, w, scale, what):
+    """K4's fused entry on (h, delta, w, scale), once launched and counted,
+    against add_rms_norm_plain (h_new exact: one f32 add rounded alike; x
+    with `_k4_check`'s tolerances; with a scale in bf16, the norm's
+    tolerance times max|scale| plus one ulp of the product) and, bit for
+    bit in both outputs, against the unfused chain on the card: torch's
+    `h + delta`, K4, torch's `* scale`. Returns (h_new, x, err, tol)."""
+    import torch
+    from voxtral_tpu_torch.ops import norms
+    h_new, x = _launched(norms, "add_rms_norm",
+                         lambda: norms.add_rms_norm(h, delta, w, K4_EPS, scale))
+    ref_h, ref_x = norms.add_rms_norm_plain(h, delta, w, K4_EPS, scale)
+    chain_h = h + delta
+    chain_x = norms.rms_norm_kernel(chain_h, w, K4_EPS)
+    if scale is not None:
+        chain_x = chain_x * scale
+    torch.cuda.synchronize()
+    for out in (h_new, x):
+        check(out.shape == h.shape and out.dtype == h.dtype, f"{what}: {out.shape} {out.dtype}")
+    check(torch.isfinite(x).all().item(), f"{what}: non-finite output")
+    check(torch.equal(h_new, ref_h), f"{what}: h_new differs from the plain version's h + delta")
+    check(torch.equal(h_new, chain_h) and torch.equal(x, chain_x),
+          f"{what}: not the unfused chain (h + delta, K4, * scale) bit for bit")
+    mx = ref_x.float().abs().max().item()
+    err = (x.float() - ref_x.float()).abs().max().item()
+    if h.dtype != torch.bfloat16:
+        tol = 1e-5 * mx
+    elif scale is None:
+        tol = _bf16_tol(mx)
+    else:       # the norm's tolerance carried through the scale, and each side's rounding
+        mxn = norms.rms_norm_plain(ref_h, w, K4_EPS).float().abs().max().item()
+        tol = (_bf16_tol(mxn) * scale.float().abs().max().item()
+               + 2.0 ** (np.floor(np.log2(mx)) - 7))
+    check(err <= tol, f"{what}: err {err} > tol {tol}")
+    return h_new, x, err, tol
+
+
+def _k4_add_row(name, rows, d, dtype, scaled, seed):
+    """K4's fused entry at a main-path shape, with or without the scale:
+    checked (`_k4_add_check`), two launches bit for bit, then the fused
+    kernel's, the plain version's, the unfused chain's on the card (torch
+    add, K4, torch mul) and the library yardstick's times over copies beyond
+    the L2. Library: torch's add, F.rms_norm with the f32 weight and
+    torch's mul, the same function. Bound: h and delta read and h_new and x
+    written once, w (f32) and the scale once; 5 f32 operations an element
+    (6 with the scale)."""
+    import torch
+    import torch.nn.functional as F
+    from voxtral_tpu_torch.ops import norms
+    copies = _l2_copies(4 * rows * d * dtype.itemsize)
+    xs, w = _k4_inputs(rows, d, dtype, seed, 2 * copies)
+    hs, ds = xs[:copies], xs[copies:]
+    scale = _k4_scale(d, dtype, seed) if scaled else None
+    what = f"K4 add_rms_norm {name} [{rows}, {d}] {dtype} {'scale' if scaled else 'no scale'}"
+    h_new, x, err, tol = _k4_add_check(hs[0], ds[0], w, scale, what)
+    h2, x2 = _launched(norms, "add_rms_norm",
+                       lambda: norms.add_rms_norm(hs[0], ds[0], w, K4_EPS, scale))
+    torch.cuda.synchronize()
+    check(torch.equal(h_new, h2) and torch.equal(x, x2), f"{what}: two launches differ")
+
+    def chain(i):
+        hn = hs[i % copies] + ds[i % copies]
+        out = norms.rms_norm_kernel(hn, w, K4_EPS)
+        return hn, out if scale is None else out * scale
+
+    def library(i):
+        hn = hs[i % copies] + ds[i % copies]
+        out = F.rms_norm(hn, (d,), w, K4_EPS)
+        return hn, out if scale is None else out * scale
+
+    lib_h, lib_x = library(0)
+    lib_err = (lib_x.float() - x.float()).abs().max().item()
+    check(torch.equal(lib_h, h_new) and lib_err <= tol,
+          f"{what}: library chain err {lib_err} > tol {tol}")
+    nbytes = 4 * rows * d * dtype.itemsize + 4 * d + (d * dtype.itemsize if scaled else 0)
+    bytes_ms, ops_ms, bound_ms, bound_by = _bound(nbytes, (5 + scaled) * rows * d,
+                                                  torch.float32)
+    row = dict(kernel="add_rms_norm", shape=name, rows=rows, d=d, dtype=str(dtype),
+               scaled=scaled, max_abs_err=err, tol=tol, library_err=lib_err,
+               ms=cuda_ms(lambda i: norms.add_rms_norm(hs[i % copies], ds[i % copies], w,
+                                                       K4_EPS, scale), 50),
+               plain_ms=cuda_ms(lambda i: norms.add_rms_norm_plain(
+                   hs[i % copies], ds[i % copies], w, K4_EPS, scale), 20),
+               chain_ms=cuda_ms(chain, 50),
+               library_ms=cuda_ms(library, 50),
+               library="torch add + torch.nn.functional.rms_norm (f32 weight) + torch mul",
+               bytes_ms=bytes_ms, ops_ms=ops_ms, bound_ms=bound_ms, bound_by=bound_by)
+    _shares(row)
+    log(f"[1] {what}: {json.dumps(row)}")
+    return row
+
+
 def _k4_row_count_gate(d, dtype, seed):
     """K4 on x [1280, d] in one call, then on parts of it of 1, 8 and 16
     rows (first, middle, last) in calls of their own: every part must have
@@ -1568,35 +1676,45 @@ def _k4_row_count_gate(d, dtype, seed):
     import torch
     import torch.nn.functional as F
     from voxtral_tpu_torch.ops import norms
-    (x,), w = _k4_inputs(K4_GATE_ROWS, d, dtype, seed)
+    (x, delta), w = _k4_inputs(K4_GATE_ROWS, d, dtype, seed, copies=2)
     wx = w.to(dtype)
-    fns = {"K4": lambda t: norms.rms_norm(t, w, K4_EPS),
-           "plain": lambda t: norms.rms_norm_plain(t, w, K4_EPS),
-           "F.rms_norm": lambda t: F.rms_norm(t, (d,), w, K4_EPS),
-           "F.rms_norm (weight in x's dtype)": lambda t: F.rms_norm(t, (d,), wx, K4_EPS)}
+    scale = _k4_scale(d, dtype, seed)
+
+    def fused(t):                     # both outputs of the fused kernel, rows t
+        return torch.cat(norms.add_rms_norm(x[t], delta[t], w, K4_EPS, scale), -1)
+
+    fns = {"K4": lambda t: norms.rms_norm(x[t], w, K4_EPS),
+           "K4 fused (h_new, x)": fused,
+           "plain": lambda t: norms.rms_norm_plain(x[t], w, K4_EPS),
+           "F.rms_norm": lambda t: F.rms_norm(x[t], (d,), w, K4_EPS),
+           "F.rms_norm (weight in x's dtype)": lambda t: F.rms_norm(x[t], (d,), wx, K4_EPS)}
     out = {}
     for name, fn in fns.items():
-        full = fn(x)
-        out[name] = all(torch.equal(fn(x[lo:lo + n]), full[lo:lo + n])
+        full = fn(slice(None))
+        out[name] = all(torch.equal(fn(slice(lo, lo + n)), full[lo:lo + n])
                         for n in (1, 8, 16) for lo in (0, K4_GATE_ROWS // 2 - n, K4_GATE_ROWS - n))
-    check(out["K4"], f"K4 [{K4_GATE_ROWS}, {d}] {dtype}: a part of 1, 8 or 16 rows has "
-                     "other bits than the same rows in the whole call")
+    for name in ("K4", "K4 fused (h_new, x)"):
+        check(out[name], f"{name} [{K4_GATE_ROWS}, {d}] {dtype}: a part of 1, 8 or 16 rows "
+                         "has other bits than the same rows in the whole call")
     return {"d": d, "dtype": str(dtype), "rows_keep_their_bits": out}
 
 
 def phase1_norm():
     """K4 at the main path's shapes (decoder [1, 3072] and [16, 3072], the
     encoder chunk [1280, 1280]; f32 and bf16, each timed), the row-count
-    gate at both widths and dtypes, then the edges: a bf16 weight, 3-D x, a
-    strided x (h[:, 0] of [B, 2, D]), a contiguous view one element off
-    alignment, odd widths on the scalar path (1001 f32 and bf16, 100 bf16),
-    and no rows (no launch). Returns the rows."""
+    gate at both widths and dtypes, then the edges, for K4 and its fused
+    entry: a bf16 weight, 3-D x, a strided x (h[:, 0] of [B, 2, D]), a
+    contiguous view one element off alignment, odd widths on the scalar path
+    (1001 f32 and bf16, 100 bf16), rows of four vectors a thread (4096
+    vectors; 4001 scalars), and no rows (no launch). Returns the rows."""
     import torch
     from voxtral_tpu_torch.ops import norms
     rows = []
     for i, (name, (n, d)) in enumerate(K4_SHAPES.items()):
         for dtype in (torch.float32, torch.bfloat16):
             rows.append(_k4_row(name, n, d, dtype, 900 + i))
+            for scaled in (False, True):
+                rows.append(_k4_add_row(name, n, d, dtype, scaled, 930 + i))
     gates = [_k4_row_count_gate(d, dtype, 910 + j)
              for j, d in enumerate((3072, 1280)) for dtype in (torch.float32, torch.bfloat16)]
     log(f"[1] K4 rows in calls of 1, 8 and 16 rows against the whole {K4_GATE_ROWS}: "
@@ -1611,15 +1729,30 @@ def phase1_norm():
         for d in (1001, 100) if dtype == torch.bfloat16 else (1001,):
             (xo,), wo = _k4_inputs(24, d, dtype, 922 + d)
             cases[f"odd width {d}"] = (xo, wo)
+        # rows of 4096 vectors and of 4001 scalars: 1024 threads of up to 4
+        for d in (4096 * 16 // dtype.itemsize, 4001):
+            (xo,), wo = _k4_inputs(8, d, dtype, 924 + d)
+            cases[f"wide {d}"] = (xo, wo)
         for case, (xc, wc) in cases.items():
             what = f"K4 edge {case} {tuple(xc.shape)} {dtype} (weight {wc.dtype})"
             _, err, tol = _k4_check(xc, wc, what)
             rows.append(dict(kernel="rms_norm", edge=case, dtype=str(dtype), max_abs_err=err,
                              tol=tol))
             log(f"[1] {what}: err {err} <= tol {tol}")
-    before = norms.LAUNCHES["rms_norm"]
-    empty = norms.rms_norm(torch.empty(0, 3072, device="cuda"), torch.ones(3072, device="cuda"))
-    check(empty.shape == (0, 3072) and norms.LAUNCHES["rms_norm"] == before,
+            # the fused entry on the same h, delta the reversed rows (strided
+            # and misaligned cases: a dense delta beside a strided h)
+            delta = xc.flip(0).contiguous() * 0.5
+            scale = _k4_scale(xc.shape[-1], dtype, 923)
+            what = f"K4 add_rms_norm edge {case} {tuple(xc.shape)} {dtype} (weight {wc.dtype})"
+            *_, err, tol = _k4_add_check(xc, delta, wc, scale, what)
+            rows.append(dict(kernel="add_rms_norm", edge=case, dtype=str(dtype),
+                             max_abs_err=err, tol=tol))
+            log(f"[1] {what}: err {err} <= tol {tol}")
+    before = dict(norms.LAUNCHES)
+    e, one = torch.empty(0, 3072, device="cuda"), torch.ones(3072, device="cuda")
+    empty = norms.rms_norm(e, one)
+    h_new, x = norms.add_rms_norm(e, e, one, scale=one)
+    check(empty.shape == h_new.shape == x.shape == (0, 3072) and norms.LAUNCHES == before,
           "K4 with no rows launched")
     return rows
 
@@ -1888,7 +2021,7 @@ def phase7():
             q8 = ring.startswith("q8")
             check(counts[dec] > 0 and counts["ring_gqa_attention_enc"] > 0
                   and counts["fused_logits_argmax"] > 0 and counts["rms_norm"] > 0
-                  and (counts["w8a16_gemv"] > 0) == q8,
+                  and counts["add_rms_norm"] > 0 and (counts["w8a16_gemv"] > 0) == q8,
                   f"TP {mode} rank {r}: launches {counts}")
             k1tp += sum(counts[k] for k in ring_kernels)
             walls[mode][f"rank{r}"] = res[mode]["walls"]
@@ -2300,10 +2433,13 @@ def phase5():
             def launches(n_dec, n_enc, n_prefill):
                 """Per run of n_dec decode tokens, n_enc K1-enc calls and
                 n_prefill prefilled streams: the decode ring kernel per
-                layer and token, K3 per token; K4 twice per decoder layer
-                and token or prefilled stream, once more per token (the
-                final norm), twice per K1-enc call and once more per
-                encoder chunk; in Q8 mode K2 for the 7
+                layer and token, K3 per token; K4 (rms_norm) once per token,
+                prefilled stream and encoder chunk (each pass's first norm),
+                its fused entry (add_rms_norm) for every later norm: twice
+                per decoder layer and token less the first, plus the final
+                norm (2 x layers a token), 2 x layers - 1 per prefilled
+                stream, twice per K1-enc call (2 x layers a chunk: the
+                final norm takes the place of the first); in Q8 mode K2 for the 7
                 matrices per decoder layer and token or prefilled stream
                 (M = 16 or 38 rows), the large-M route for the encoder's 7
                 per K1-enc call (B x 80 rows) and the adapter's 2."""
@@ -2311,8 +2447,9 @@ def phase5():
                 want[dec_kernel] += layers_d * n_dec
                 want["ring_gqa_attention_enc"] += n_enc
                 want["fused_logits_argmax"] += n_dec
-                want["rms_norm"] += ((2 * layers_d + 1) * n_dec + 2 * layers_d * n_prefill
-                                     + (2 * layers_e + 1) * (n_enc // layers_e))
+                want["rms_norm"] += n_dec + n_prefill + n_enc // layers_e
+                want["add_rms_norm"] += (2 * layers_d * n_dec + (2 * layers_d - 1) * n_prefill
+                                         + 2 * n_enc)
                 if q8:
                     want["w8a16_gemv"] += 7 * layers_d * (n_dec + n_prefill)
                     want["q8_mm"] += 7 * n_enc + 2
@@ -2374,25 +2511,11 @@ def phase5():
 
 
 def _device_activities():
-    """The profiler activities of the step, poll and feed profiles."""
+    """The profiler activities of the step, poll and feed profiles: device
+    activity only, whose kernel rows are all that
+    `tools.profile_fleet_step.device_rows` reads."""
     from torch.profiler import ProfilerActivity
     return [ProfilerActivity.CUDA]
-
-
-def _device_rows(prof):
-    """Kernel rows of a profile, (self device us, count, name), largest
-    first: CPU op ranges and annotations projected onto the device timeline
-    repeat their kernels' time and are left out. The step, poll and feed
-    profiles record device activity only (`_device_activities`): kernel
-    rows are all they read, and recording every CPU op made a profiled step
-    several times slower and its processing about three times longer."""
-    from torch.autograd import DeviceType
-    avgs = prof.key_averages()
-    cpu_keys = {e.key for e in avgs if e.device_type == DeviceType.CPU}
-    rows = [(e.self_device_time_total, e.count, e.key) for e in avgs
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False) and e.key not in cpu_keys]
-    return sorted(rows, reverse=True)
 
 
 def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, mode):
@@ -2403,29 +2526,21 @@ def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, m
     import torch
     from torch.profiler import profile
     from voxtral_tpu_torch.runtime import fleet as fl
+    from voxtral_tpu_torch.tools.profile_fleet_step import device_rows, kernel_groups
     with profile(activities=_device_activities()) as prof:
         fl.fleet_step_masked(params, cfg, state, pcm, active, forced, t_ada)
         torch.cuda.synchronize()
-    rows = _device_rows(prof)
-    total_us = sum(r[0] for r in rows)
-    enc_us = sum(r[0] for r in rows if "ring_enc_" in r[2])       # f32, mma, merge
-    dec_us = sum(r[0] for r in rows if "ring_partial" in r[2] or "ring_merge" in r[2]
-                 or "ring_dec_" in r[2])
-    gemm_us = sum(r[0] for r in rows if "nvjet" in r[2] or "splitKreduce" in r[2]
-                  or "gemm" in r[2].lower() and "w8a16" not in r[2])
-    k2_us = sum(r[0] for r in rows if "w8a16_" in r[2])
-    k3_us = sum(r[0] for r in rows if "logits_kernel" in r[2] or "logits_mma_kernel" in r[2])
-    k4_us = sum(r[0] for r in rows if "rms_norm_kernel" in r[2])
-    elt_us = sum(r[0] for r in rows if "elementwise_kernel" in r[2])
-    red_us = sum(r[0] for r in rows if "reduce_kernel" in r[2])
-    share = total_us / 1e6 / wall_s
-    log(f"[5] profile {mode} (aged state): device busy {total_us / 1e3:.3f} ms of "
+    rows = device_rows(prof)
+    g = {k: (us / 1e3, n) for k, (us, n) in kernel_groups(rows).items()}
+    share = g["all"][0] / 1e3 / wall_s
+    log(f"[5] profile {mode} (aged state): device busy {g['all'][0]:.3f} ms of "
         f"{wall_s * 1e3:.2f} ms unprofiled wall (share {share:.4f}); K1-enc "
-        f"{enc_us / 1e3:.3f} ms; decode ring kernel {dec_us / 1e3:.3f} ms; "
-        f"cuBLAS GEMM rows {gemm_us / 1e3:.3f} ms; K2 (w8a16) {k2_us / 1e3:.3f} ms; "
-        f"K3 (fused logits argmax) {k3_us / 1e3:.3f} ms; K4 (rms_norm) {k4_us / 1e3:.3f} "
-        f"ms; torch elementwise kernels {elt_us / 1e3:.3f} ms; torch reductions "
-        f"{red_us / 1e3:.3f} ms")
+        f"{g['ring_enc'][0]:.3f} ms; decode ring kernel {g['ring_dec'][0]:.3f} ms; "
+        f"cuBLAS GEMM rows {g['cublas'][0]:.3f} ms; K2 (w8a16) {g['k2'][0]:.3f} ms; "
+        f"K3 (fused logits argmax) {g['k3'][0]:.3f} ms; K4 (rms_norm and add_rms_norm) "
+        f"{g['k4'][0]:.3f} ms x{g['k4'][1]}; torch elementwise kernels "
+        f"{g['elementwise'][0]:.3f} ms x{g['elementwise'][1]}; torch reductions "
+        f"{g['reduce'][0]:.3f} ms x{g['reduce'][1]}")
     for us, count, key in rows[:10]:
         log(f"[5]   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
     return share
@@ -2630,7 +2745,7 @@ def phase8b(total, direct):
     clips, late = _serve_clips()
     audio_s = sum(a.size for a in clips.values()) / cfg.audio.sample_rate
     kernels = ("ring_gqa_attention_int8", "ring_gqa_attention_enc", "w8a16_gemv",
-               "fused_logits_argmax", "rms_norm")
+               "fused_logits_argmax", "rms_norm", "add_rms_norm")
     ids, walls, results = [], [], []
     profiled = {}
     for rep, depth in ((0, 1), (1, 1), (2, 2)):
@@ -2696,10 +2811,11 @@ def _profiled_poll(mgr):
     rows only), with the main kernels' shares."""
     import torch
     from torch.profiler import profile
+    from voxtral_tpu_torch.tools.profile_fleet_step import device_rows
     with profile(activities=_device_activities()) as prof:
         steps = mgr.poll()
         torch.cuda.synchronize()
-    rows = _device_rows(prof)
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e3
 
     def ms(*keys):
@@ -2801,6 +2917,7 @@ def _timed_stream():
     import torch
     from torch.profiler import profile
     from voxtral_tpu_torch.runtime import VoxStream
+    from voxtral_tpu_torch.tools.profile_fleet_step import device_rows
 
     class TimedStream(VoxStream):
         made: list = []
@@ -2822,7 +2939,7 @@ def _timed_stream():
                 torch.cuda.synchronize()
             if self.profiled and k == self.profiled[-1]:
                 self._prof.stop()
-                self.busy_ms = sum(r[0] for r in _device_rows(self._prof)) / 1e3
+                self.busy_ms = sum(r[0] for r in device_rows(self._prof)) / 1e3
             self.walls.append(time.perf_counter() - t0)
     return TimedStream
 
@@ -2987,11 +3104,12 @@ def phase9b(total, q8_params, cfg):
     audio_s = audio.size / cfg.audio.sample_rate
     timed = _timed_stream()
     want = {"auto": ("ring_gqa_attention", "ring_gqa_attention_enc", "fused_logits_argmax",
-                     "rms_norm"),
+                     "rms_norm", "add_rms_norm"),
             "bucketed": ("ring_gqa_attention", "ring_gqa_attention_enc",
-                         "fused_logits_argmax", "rms_norm"),
+                         "fused_logits_argmax", "rms_norm", "add_rms_norm"),
             "fused q8+int8+int4": ("ring_gqa_attention_int8", "ring_gqa_attention_enc",
-                                   "w8a16_gemv", "fused_logits_argmax", "rms_norm")}
+                                   "w8a16_gemv", "fused_logits_argmax", "rms_norm",
+                                   "add_rms_norm")}
     text = None
     results = {}
     for backend in want:
@@ -3283,7 +3401,7 @@ def phase10a():
                 counts = r[mode]["launches"]
                 check(counts[dec] > 0 and counts["ring_gqa_attention_enc"] > 0
                       and counts["fused_logits_argmax"] > 0 and counts["rms_norm"] > 0
-                      and (counts["w8a16_gemv"] > 0) == q8,
+                      and counts["add_rms_norm"] > 0 and (counts["w8a16_gemv"] > 0) == q8,
                       f"[10a] {layout} {mode} rank ({r['data']}, {r['model']}): "
                       f"launches {counts}")
                 for k, v in counts.items():
@@ -3379,7 +3497,7 @@ def _row_count_probe(params, cfg):
     from voxtral_tpu_torch.ops import ring_attention as ra
     from voxtral_tpu_torch.ops.linear import embed_logits, linear
     from voxtral_tpu_torch.ops.logits_argmax import _dispatch
-    from voxtral_tpu_torch.ops.norms import rms_norm
+    from voxtral_tpu_torch.ops.norms import add_rms_norm, rms_norm
     from voxtral_tpu_torch.quant import Quantized
     from voxtral_tpu_torch.runtime.fleet import _batched_causal_conv, _device_log_mel
 
@@ -3402,6 +3520,8 @@ def _row_count_probe(params, cfg):
     x_c0, x_c1 = rnd(b, a.mel_bins, 2 + frames, **f32), rnd(b, e, 2 + frames, **f32)
     x_dec, x_enc = rnd(b, d), rnd(b, 80, e)
     x_dec32, x_enc32 = rnd(b, d, **f32), rnd(b, 80, e, **f32)
+    ada = 1.0 + 0.1 * rnd(d)                # the decoder's scale row, in x's dtype
+    ada32 = ada.float()
     ops = {  # name: op on the rows `sl` of 16 streams' inputs
         "device log-mel (f32 DFT, filters)":
             lambda sl: _device_log_mel(cfg, x_mel[sl, :lap], x_mel[sl, lap:])[0],
@@ -3414,6 +3534,14 @@ def _row_count_probe(params, cfg):
         "rms_norm encoder (f32)": lambda sl: rms_norm(x_enc32[sl], enc["attn_norm"]),
         "rms_norm decoder (bf16)": lambda sl: rms_norm(x_dec[sl], dec["attn_norm"]),
         "rms_norm encoder (bf16)": lambda sl: rms_norm(x_enc[sl], enc["attn_norm"]),
+        "add_rms_norm decoder (f32, scale)": lambda sl: torch.cat(add_rms_norm(
+            x_dec32[sl], x_dec32.flip(0)[sl], dec["ffn_norm"], scale=ada32), -1),
+        "add_rms_norm encoder (f32)": lambda sl: torch.cat(add_rms_norm(
+            x_enc32[sl], x_enc32.flip(0)[sl], enc["ffn_norm"]), -1),
+        "add_rms_norm decoder (bf16, scale)": lambda sl: torch.cat(add_rms_norm(
+            x_dec[sl], x_dec.flip(0)[sl], dec["ffn_norm"], scale=ada), -1),
+        "add_rms_norm encoder (bf16)": lambda sl: torch.cat(add_rms_norm(
+            x_enc[sl], x_enc.flip(0)[sl], enc["ffn_norm"]), -1),
         "K3 argmax (token, value)": lambda sl: torch.stack(
             [t.float() for t in _dispatch(x_dec[sl], params["decoder"]["embed"], False, True)], 1),
         "K3 logits": lambda sl: embed_logits(x_dec[sl], params["decoder"]["embed"])}
@@ -3469,7 +3597,7 @@ def phase10b(serve_ref):
     audio_s = sum(a.size for a in clips.values()) / cfg.audio.sample_rate
     ranks = run_ranks(_dp_serve_rank, 2, (cfg, clips, late), timeout=DP_TIMEOUT)
     kernels = ("ring_gqa_attention_int8", "ring_gqa_attention_enc", "w8a16_gemv",
-               "fused_logits_argmax", "rms_norm")
+               "fused_logits_argmax", "rms_norm", "add_rms_norm")
     total = dict.fromkeys(_counts(), 0)
     check([r["runs"][0]["rows"] for r in ranks] == [(0, SERVE_B // 2), (SERVE_B // 2, SERVE_B)],
           f"[10b] rows {[r['runs'][0]['rows'] for r in ranks]}")
@@ -3603,7 +3731,7 @@ def ceiling_shares(rows):
 # What each path must launch: the serving path (phases 3, 5, 8, 9b and 10;
 # q8_mm is the Q8 large-M route, not a kernel) and the tools path (phase 6).
 MAIN_PATH = ("ring_gqa_attention", "ring_gqa_attention_int8", "ring_gqa_attention_enc",
-             "w8a16_gemv", "fused_logits_argmax", "rms_norm", "q8_mm")
+             "w8a16_gemv", "fused_logits_argmax", "rms_norm", "add_rms_norm", "q8_mm")
 TOOLS_PATH = ("wread", "pure_stream", "bf16_matmul", "rd", "w8a16_gemv",
               "fused_logits_argmax", "attn8", "attn4", "attn3d", "attn4d", "rd_flat",
               "rd_blockmajor", "rd_g")
@@ -3683,6 +3811,11 @@ def main() -> int:
         # are the decoder's token step at B 16 in bf16
         _kernel_entry(rows, launches, "rms_norm", "rms_norm.cu", "voxtral_tpu/ops/norms.py:14",
                       dict(rows=16, d=3072, dtype="torch.bfloat16")),
+        # K4's fused entry replaces the XLA fusion of the residual add, the
+        # norm and the ada multiply; its numbers: the token step's ffn_norm
+        _kernel_entry(rows, launches, "add_rms_norm", "rms_norm.cu",
+                      "voxtral_tpu/models/decoder.py:477-479",
+                      dict(rows=16, d=3072, dtype="torch.bfloat16", scaled=True)),
         # the tools path's kernels, with their launches there (phase 6)
         _kernel_entry(rows, tool_launches, "wread", "read_ceiling.cu",
                       "tools/profile_q8_matmul_roofline.py:85", dict(matrix="w1/w3")),

@@ -192,3 +192,44 @@ def test_profile_tools_default_to_cuda(tool):
         pytest.skip("checks the refusal on a machine without CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tool()
+
+
+
+def test_fleet_step_profile_groups_and_drive(monkeypatch):
+    """profile_fleet_step (the phase-5 step's device time by kernel group,
+    also chip_smoke.py's grouping): each kernel name lands in one group, the
+    port's kernels and cuBLAS's before torch's generic ones; the drive runs
+    at tiny_config on the CPU in both modes (a CPU profile has no kernel
+    rows); `main` refuses without CUDA."""
+    from voxtral_tpu_torch.config import tiny_config
+    from voxtral_tpu_torch.models.decoder import ada_scales, time_conditioning
+    from voxtral_tpu_torch.quant import quantize_params
+    from voxtral_tpu_torch.tools import profile_fleet_step as pfs
+    from voxtral_tpu_torch.weights import random_params
+    rows = [(5.0, 2, "void splitKreduce_kernel<32, 16>"),
+            (7.0, 3, "at::native::reduce_kernel<512>"),
+            (3.0, 1, "at::native::vectorized_elementwise_kernel<4, AddFunctor>"),
+            (2.0, 4, "rms_norm_kernel<float, float, 4, 2, true, true>"),
+            (1.0, 1, "nvjet_tst_64x8"), (1.5, 2, "w8a16_mma_kernel<1, 2>"),
+            (0.5, 1, "ring_dec_merge_kernel"), (0.25, 1, "ring_enc_mma_kernel"), (4.0, 1, "x")]
+    g = pfs.kernel_groups(rows)
+    assert g["cublas"] == (6.0, 3) and g["reduce"] == (7.0, 3) and g["elementwise"] == (3.0, 1)
+    assert g["k4"] == (2.0, 4) and g["k2"] == (1.5, 2) and g["other"] == (4.0, 1)
+    assert g["ring_dec"] == (0.5, 1) and g["ring_enc"] == (0.25, 1)
+    assert g["all"] == (sum(r[0] for r in rows), sum(r[1] for r in rows))
+    cfg = tiny_config()
+    monkeypatch.setattr(pfs, "ENC_RING", 200)
+    monkeypatch.setattr(pfs, "DEC_RING", 256)
+    params = random_params(cfg, seed=0, device="cpu")
+    t_ada = ada_scales(params["decoder"], time_conditioning(
+        cfg.streaming.delay_tokens, cfg.decoder.dim, device="cpu"))
+    streams = pfs.fleet_streams(cfg, 2, 6.0, "cpu")
+    for mode in pfs.MODES:
+        if pfs.MODES[mode][2]:
+            params = quantize_params(params)
+        r = pfs.profile_mode(params, cfg, t_ada, streams, mode, 1)
+        assert r["mode"] == mode and r["streams"] == 2 and r["step_wall_ms"] > 0
+        assert r["launches"] == 0 and r["groups"]["all"] == dict(ms=0.0, launches=0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            pfs.main([])

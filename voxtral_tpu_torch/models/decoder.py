@@ -56,7 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from voxtral_tpu_torch.config import VoxtralConfig
-from voxtral_tpu_torch.ops import apply_rope, rms_norm, rope_angles
+from voxtral_tpu_torch.ops import add_rms_norm, apply_rope, rms_norm, rope_angles
 from voxtral_tpu_torch.ops.attention import windowed_attention
 from voxtral_tpu_torch.ops.linear import embed_logits, embed_lookup, linear, row_linear
 from voxtral_tpu_torch.ops.logits_argmax import logits_argmax
@@ -279,23 +279,27 @@ def decoder_prefill(dec_params: dict, cfg: VoxtralConfig, state: DecodeState,
         n_valid = torch.full((b,), s, dtype=torch.int32, device=dev)
     positions = torch.arange(s, dtype=torch.int32, device=dev)
     cos, sin = rope_angles(positions, d.head_dim, d.rope_theta)
+    # as decode_scan: the ada row cast to the activation dtype, then 1 added
+    ada_rows = [1.0 + t_ada[l].to(cfg.compute_dtype) for l in range(d.layers)]
 
     def one_stream(emb):
         """[S, D] -> per-layer (k, v) [S, Hkv*hd] lists; attention is over
         the prefix itself (fresh cache), so ring reads are not needed."""
-        h = emb
+        h, ffn = emb, None
         ks, vs = [], []
         for l, lp in enumerate(dec_params["layers"]):
-            x = rms_norm(h, lp["attn_norm"], d.norm_eps)
+            if ffn is None:
+                x = rms_norm(h, lp["attn_norm"], d.norm_eps)
+            else:
+                h, x = add_rms_norm(h, ffn, lp["attn_norm"], d.norm_eps)
             q, k, v = _layer_matmuls(lp, x, d)
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
             attn = windowed_attention(q, k, v, window=d.window)
-            h = h + row_linear(attn.reshape(s, d.q_dim), lp["wo"], tp=tp)
-            x = rms_norm(h, lp["ffn_norm"], d.norm_eps)
-            x = x * (1.0 + t_ada[l].to(x.dtype))[None, :]
-            h = h + row_linear(F.silu(linear(x, lp["w1"]))
-                               * linear(x, lp["w3"]), lp["w2"], tp=tp)
+            h, x = add_rms_norm(h, row_linear(attn.reshape(s, d.q_dim), lp["wo"], tp=tp),
+                                lp["ffn_norm"], d.norm_eps, ada_rows[l])
+            ffn = row_linear(F.silu(linear(x, lp["w1"])) * linear(x, lp["w3"]), lp["w2"],
+                             tp=tp)
             ks.append(k.reshape(s, d.kv_dim))
             vs.append(v.reshape(s, d.kv_dim))
         return ks, vs
@@ -393,8 +397,7 @@ def decode_scan(dec_params: dict, cfg: VoxtralConfig, state: DecodeState,
     chunk_pos = torch.full((b, n), SLOT_INVALID, dtype=i32, device=dev)
     pos, prev, done = state.pos, state.prev_token, state.done
     # as the JAX package: cast the ada row to the activation dtype, then add 1
-    ada_rows = [(1.0 + t_ada[l].to(cfg.compute_dtype))[None, None, :]
-                for l in range(d.layers)]
+    ada_rows = [1.0 + t_ada[l].to(cfg.compute_dtype) for l in range(d.layers)]
     invalid = torch.full_like(pos, SLOT_INVALID)
     neg_one = torch.full_like(pos, -1)
     toks, tops = [], []
@@ -408,9 +411,13 @@ def decode_scan(dec_params: dict, cfg: VoxtralConfig, state: DecodeState,
              .to(cfg.compute_dtype))                              # [B, 1, D]
         cos, sin = rope_angles(pos[:, None], d.head_dim, d.rope_theta)
         chunk_pos[:, i] = torch.where(active, pos, invalid)
+        ffn = None              # the previous layer's FFN output, added at the next norm
         for l in range(d.layers):
             lp = dec_params["layers"][l]
-            x = rms_norm(h, lp["attn_norm"], d.norm_eps)
+            if ffn is None:
+                x = rms_norm(h, lp["attn_norm"], d.norm_eps)
+            else:
+                h, x = add_rms_norm(h, ffn, lp["attn_norm"], d.norm_eps)
             q = linear(x, lp["wq"]).reshape(b, 1, d.heads, d.head_dim)
             k = linear(x, lp["wk"]).reshape(b, 1, d.kv_heads, d.head_dim)
             v = linear(x, lp["wv"]).reshape(b, 1, d.kv_heads, d.head_dim)
@@ -426,13 +433,12 @@ def decode_scan(dec_params: dict, cfg: VoxtralConfig, state: DecodeState,
                 v_scale=None if v_ss is None else v_ss[l],
                 extra_kv=(chunk_k[l], chunk_v[l], chunk_pos),
                 n_valid_slots=nv_slots)                           # [B, 1, Qd]
-            h = h + row_linear(attn, lp["wo"], tp=tp)
-            x = rms_norm(h, lp["ffn_norm"], d.norm_eps)
-            x = x * ada_rows[l].to(x.dtype)
-            h = h + row_linear(F.silu(linear(x, lp["w1"]))
-                               * linear(x, lp["w3"]), lp["w2"], tp=tp)
+            h, x = add_rms_norm(h, row_linear(attn, lp["wo"], tp=tp), lp["ffn_norm"],
+                                d.norm_eps, ada_rows[l])
+            ffn = row_linear(F.silu(linear(x, lp["w1"])) * linear(x, lp["w3"]), lp["w2"],
+                             tp=tp)
 
-        hn = rms_norm(h[:, 0], dec_params["norm"], d.norm_eps)
+        _, hn = add_rms_norm(h[:, 0], ffn[:, 0], dec_params["norm"], d.norm_eps)
         if collect_topk > 0:
             logits = embed_logits(hn, embed, tp)                  # [B, V]
             tok = torch.argmax(logits, dim=-1).to(i32)

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from voxtral_tpu_torch.config import VoxtralConfig
 from voxtral_tpu_torch.ops import (
-    apply_rope, causal_conv1d, rms_norm, rope_angles, windowed_attention,
+    add_rms_norm, apply_rope, causal_conv1d, rms_norm, rope_angles, windowed_attention,
 )
 from voxtral_tpu_torch.ops.linear import linear, row_linear
 from voxtral_tpu_torch.ops.ring_attention import ring_attention
@@ -67,15 +67,18 @@ def encoder_forward(enc_params: dict, cfg: VoxtralConfig, h: torch.Tensor,
     positions = pos_start + torch.arange(s, device=h.device)
     cos, sin = rope_angles(positions, e.head_dim, e.rope_theta)
 
+    ffn = None              # the previous layer's FFN output, added at the next norm
     for lp in enc_params["layers"]:
-        x = rms_norm(h, lp["attn_norm"], e.norm_eps)
+        if ffn is None:
+            x = rms_norm(h, lp["attn_norm"], e.norm_eps)
+        else:
+            h, x = add_rms_norm(h, ffn, lp["attn_norm"], e.norm_eps)
         q, k, v = _attn_block(lp, x, e, cos, sin)
         attn = windowed_attention(q, k, v, window=e.window)
-        h = h + linear(attn.reshape(s, e.attn_dim), lp["wo"], lp["wo_b"])
-        x = rms_norm(h, lp["ffn_norm"], e.norm_eps)
-        h = h + linear(F.silu(linear(x, lp["w1"])) * linear(x, lp["w3"]),
-                       lp["w2"], lp["w2_b"])
-    return rms_norm(h, enc_params["norm"], e.norm_eps)
+        h, x = add_rms_norm(h, linear(attn.reshape(s, e.attn_dim), lp["wo"], lp["wo_b"]),
+                            lp["ffn_norm"], e.norm_eps)
+        ffn = linear(F.silu(linear(x, lp["w1"])) * linear(x, lp["w3"]), lp["w2"], lp["w2_b"])
+    return add_rms_norm(h, ffn, enc_params["norm"], e.norm_eps)[1]
 
 
 SLOT_INVALID = -(1 << 30)
@@ -221,8 +224,12 @@ def encoder_incremental(enc_params: dict, cfg: VoxtralConfig,
     int4 = quant and state.k_ring[0].shape[-1] * 2 == e.attn_dim
     qkv = quantize_kv_int4 if int4 else quantize_kv
     chunk_k, chunk_v, chunk_ks, chunk_vs = [], [], [], []
+    ffn = None              # the previous layer's FFN output, added at the next norm
     for l, lp in enumerate(enc_params["layers"]):
-        x = rms_norm(h, lp["attn_norm"], e.norm_eps)
+        if ffn is None:
+            x = rms_norm(h, lp["attn_norm"], e.norm_eps)
+        else:
+            h, x = add_rms_norm(h, ffn, lp["attn_norm"], e.norm_eps)
         q, k, v = _attn_block(lp, x, e, cos, sin)
         kd = k.reshape(b, s, e.attn_dim).to(float_dt)
         vd = v.reshape(b, s, e.attn_dim).to(float_dt)
@@ -245,11 +252,11 @@ def encoder_incremental(enc_params: dict, cfg: VoxtralConfig,
             k_scale=state.k_scale[l] if quant else None,
             v_scale=state.v_scale[l] if quant else None,
             extra_kv=(kd, vd, chunk_pos), n_valid_slots=nv_slots)
-        h = h + row_linear(attn.reshape(b, s, e.attn_dim), lp["wo"], lp["wo_b"], tp)
-        x = rms_norm(h, lp["ffn_norm"], e.norm_eps)
-        h = h + row_linear(F.silu(linear(x, lp["w1"])) * linear(x, lp["w3"]),
-                           lp["w2"], lp["w2_b"], tp)
-    out = rms_norm(h, enc_params["norm"], e.norm_eps)
+        h, x = add_rms_norm(h, row_linear(attn.reshape(b, s, e.attn_dim), lp["wo"],
+                                          lp["wo_b"], tp), lp["ffn_norm"], e.norm_eps)
+        ffn = row_linear(F.silu(linear(x, lp["w1"])) * linear(x, lp["w3"]), lp["w2"],
+                         lp["w2_b"], tp)
+    out = add_rms_norm(h, ffn, enc_params["norm"], e.norm_eps)[1]
 
     pad = sp_cap - s                   # park the chunk as the pending block
     pk = tuple(F.pad(c, (0, 0, 0, pad)) for c in chunk_k)

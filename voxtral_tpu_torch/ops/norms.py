@@ -9,6 +9,11 @@ CUDA tensor, or raises. K4 is a hand kernel with no Pallas counterpart (the
 JAX package leaves the norm to an XLA fusion): one launch instead of the
 plain version's nine, and a reduction order fixed by D and the dtype
 (`k4_plan`), so a row's bits never depend on how many rows the call holds.
+
+`add_rms_norm(h, delta, weight, eps, scale)` is the layer boundary that XLA
+fuses on the TPU: the residual add, the norm and the ada multiply, in one
+launch of K4's fused entry with K4's order (the same bits as the unfused
+chain `h + delta`, `rms_norm`, `* scale`, which is its plain version).
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}    # = DType in the source
 
 # Kernel launches; the wrapper adds one where it launches its kernel and
 # nowhere else.
-LAUNCHES = {"rms_norm": 0}
+LAUNCHES = {"rms_norm": 0, "add_rms_norm": 0}
 
 
 def reset_launches() -> None:
@@ -78,6 +83,16 @@ def _lib():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _lib_fused():
+    from voxtral_tpu_torch import _build
+    fn = _build.load("rms_norm.cu").add_rms_norm_launch
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp] * 6 + [ci] * 6 + [ctypes.c_float, vp]
+    fn.restype = ci
+    return fn
+
+
 def _dense_aligned(t: torch.Tensor) -> torch.Tensor:
     """t itself if it is contiguous and 16-byte aligned, else a fresh copy
     (an allocation is aligned): a strided x reaches the kernel as dense rows."""
@@ -86,16 +101,22 @@ def _dense_aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _check_weight(who: str, x: torch.Tensor, weight: torch.Tensor) -> int:
+    """Raises unless weight is an f32 or bf16 [D] on x's device; returns D."""
+    d = x.shape[-1] if x.dim() else 0
+    if weight.device != x.device or weight.dtype not in _DTYPES or tuple(weight.shape) != (d,):
+        raise ValueError(f"{who}: weight {tuple(weight.shape)} {weight.dtype} on "
+                         f"{weight.device} for x [..., {d}] on {x.device}: K4 takes an f32 or "
+                         "bf16 weight [D] on x's device")
+    return d
+
+
 def rms_norm_kernel(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """K4 on a CUDA x [..., D] (f32 or bf16) and weight [D] (f32 or bf16) on
     the same card; returns x's shape and dtype. Raises on anything else."""
     if x.device.type != "cuda":
         raise ValueError(f"rms_norm_kernel takes a CUDA tensor, got one on {x.device}")
-    d = x.shape[-1] if x.dim() else 0
-    if weight.device != x.device or weight.dtype not in _DTYPES or tuple(weight.shape) != (d,):
-        raise ValueError(f"rms_norm: weight {tuple(weight.shape)} {weight.dtype} on "
-                         f"{weight.device} for x [..., {d}] on {x.device}: K4 takes an f32 or "
-                         "bf16 weight [D] on x's device")
+    d = _check_weight("rms_norm", x, weight)
     plan = k4_plan(d, x.dtype)
     rows = x.numel() // d
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -118,3 +139,72 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     return rms_norm_kernel(x, weight, eps)
+
+
+def add_rms_norm_plain(h: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
+                       eps: float = 1e-5, scale: torch.Tensor | None = None):
+    """The unfused chain: h_new = h + delta, x = rms_norm_plain(h_new)
+    (* scale). Returns (h_new, x)."""
+    h_new = h + delta
+    x = rms_norm_plain(h_new, weight, eps)
+    if scale is not None:
+        x = x * scale
+    return h_new, x
+
+
+def _check_add_args(h, delta, scale):
+    """The fused form takes h and delta of one dtype and shape (a call site
+    that relied on type promotion casts first), and a scale [D] in their
+    dtype on their device."""
+    if delta.dtype != h.dtype or delta.shape != h.shape or delta.device != h.device:
+        raise ValueError(f"add_rms_norm: h {tuple(h.shape)} {h.dtype} and delta "
+                         f"{tuple(delta.shape)} {delta.dtype} on {delta.device}: the same "
+                         "dtype, shape and device are needed")
+    d = h.shape[-1] if h.dim() else 0
+    if scale is not None and (scale.dtype != h.dtype or tuple(scale.shape) != (d,)
+                              or scale.device != h.device):
+        raise ValueError(f"add_rms_norm: scale {tuple(scale.shape)} {scale.dtype} on "
+                         f"{scale.device} for h [..., {d}] {h.dtype}: a row [D] in h's "
+                         "dtype on h's device is needed")
+
+
+def add_rms_norm_kernel(h: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
+                        eps: float = 1e-5, scale: torch.Tensor | None = None):
+    """K4's fused entry on CUDA h and delta [..., D] (f32 or bf16, one dtype
+    and shape), weight [D] (f32 or bf16) and an optional scale [D] in h's
+    dtype, all on one card: returns (h + delta, rms_norm(h + delta) (*
+    scale)) in h's shape and dtype. Raises on anything else."""
+    _check_add_args(h, delta, scale)
+    if h.device.type != "cuda":
+        raise ValueError(f"add_rms_norm_kernel takes a CUDA tensor, got one on {h.device}")
+    d = _check_weight("add_rms_norm", h, weight)
+    plan = k4_plan(d, h.dtype)
+    rows = h.numel() // d
+    h_new = torch.empty(h.shape, dtype=h.dtype, device=h.device)
+    out = torch.empty(h.shape, dtype=h.dtype, device=h.device)
+    if rows == 0:
+        return h_new, out
+    hd, dd, wd = _dense_aligned(h), _dense_aligned(delta), _dense_aligned(weight)
+    sd = None if scale is None else _dense_aligned(scale)
+    err = _lib_fused()(hd.data_ptr(), dd.data_ptr(), wd.data_ptr(),
+                       None if sd is None else sd.data_ptr(), h_new.data_ptr(),
+                       out.data_ptr(), rows, d, _DTYPES[h.dtype], _DTYPES[weight.dtype],
+                       plan.vec, plan.threads, eps,
+                       torch.cuda.current_stream(h.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"add_rms_norm kernel launch failed: CUDA error {err}")
+    LAUNCHES["add_rms_norm"] += 1
+    return h_new, out
+
+
+def add_rms_norm(h: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
+                 eps: float = 1e-5, scale: torch.Tensor | None = None):
+    """h, delta: [..., D] of one dtype and shape; weight: [D]; scale: None
+    or [D] in h's dtype. Returns (h + delta, rms_norm(h + delta, weight)
+    (* scale)), both in h's dtype."""
+    _check_add_args(h, delta, scale)
+    if h.device.type == "cpu":
+        return add_rms_norm_plain(h, delta, weight, eps, scale)
+    if h.device.type != "cuda":
+        raise ValueError(f"unsupported device {h.device}")
+    return add_rms_norm_kernel(h, delta, weight, eps, scale)

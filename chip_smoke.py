@@ -189,6 +189,11 @@ import time
 
 import numpy as np
 
+from voxtral_tpu_torch.tools.profile_fleet_step import (BOOT_MEL, CHUNK_MEL, RING_MODES,
+                                                        STREAMS, device_rows, fleet_streams,
+                                                        init_state, kernel_groups,
+                                                        profile_step, synthetic_audio)
+
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"torch.float32": 67e12,           # CUDA cores, no tensor cores
               "torch.bfloat16": 989e12}         # dense tensor-core rate
@@ -202,7 +207,6 @@ FLEET_DEC = dict(heads=32, kv_heads=8, head_dim=128, window=8192, p=2080, sx=20,
                  s=1)
 FLEET_ENC = dict(heads=32, kv_heads=32, head_dim=64, window=750, p=928, sx=80,
                  s=80)
-CHUNK_MEL, BOOT_MEL, DEC_RING, ENC_RING = 160, 320, 2048, 840
 
 
 def log(msg: str) -> None:
@@ -218,17 +222,6 @@ def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def synthetic_audio(seconds: float, seed: int) -> np.ndarray:
-    """A gliding tone with harmonics over noise, 16 kHz f32."""
-    rng = np.random.RandomState(seed)
-    t = np.arange(int(seconds * 16000)) / 16000.0
-    f0 = 150.0 + 60.0 * np.sin(2 * np.pi * 0.7 * t + rng.rand() * 6.28)
-    phase = 2 * np.pi * np.cumsum(f0) / 16000.0
-    tone = sum(np.sin(k * phase) / k for k in (1, 2, 3))
-    env = 0.5 + 0.5 * np.sin(2 * np.pi * 2.0 * t) ** 2
-    return (0.1 * tone * env + 0.01 * rng.randn(t.size)).astype(np.float32)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -1886,7 +1879,6 @@ def _tp_drive(params, cfg, streams, ring, tp):
     import torch
     from voxtral_tpu_torch.models.decoder import ada_scales, time_conditioning
     from voxtral_tpu_torch.runtime import fleet as fl
-    kv, ekv = RING_MODES[ring]
     hop, b = cfg.audio.hop_length, streams.shape[0]
     rows = slice(None) if tp is None else slice(tp.data_rank * b // tp.data_size,
                                                 (tp.data_rank + 1) * b // tp.data_size)
@@ -1894,9 +1886,7 @@ def _tp_drive(params, cfg, streams, ring, tp):
     bl = pcm.shape[0]
     t_ada = ada_scales(params["decoder"], time_conditioning(
         cfg.streaming.delay_tokens, cfg.decoder.dim, device="cuda"))
-    state = fl.init_fleet_state(cfg, b, enc_ring=ENC_RING, dec_ring=DEC_RING,
-                                max_mel_chunk=CHUNK_MEL, kv_dtype=kv, enc_kv_dtype=ekv,
-                                device="cuda", tp=tp)
+    state = init_state(cfg, b, ring, "cuda", tp=tp)
     active = torch.ones(bl, dtype=torch.bool, device="cuda")
     forced = torch.full((bl, CHUNK_MEL // 8), -1, dtype=torch.int32, device="cuda")
     toks, walls = [], []
@@ -1990,8 +1980,8 @@ def phase7():
     t0 = time.perf_counter()
     cfgs = dict(float32=_reduced_config(),
                 bfloat16=_reduced_config(torch.bfloat16, torch.bfloat16))
-    streams = _fleet_streams(cfgs["float32"],
-                             [synthetic_audio(7.0, 300 + i) for i in range(TP_STREAMS)])
+    streams = fleet_streams(cfgs["float32"],
+                            [synthetic_audio(7.0, 300 + i) for i in range(TP_STREAMS)])
     params, ref = None, {}
     for mode, (_, ring) in TP_MODES.items():
         cfg, params = _tp_mode_params(cfgs, mode, params)
@@ -2255,28 +2245,11 @@ def profile_request(params, cfg, audio, wall_s, steps):
 # Phases 4 and 5: the fleet step
 # ---------------------------------------------------------------------------
 
-# Weight and ring modes; the Q8 mode (Q8 weights, int8 decoder rings, int4
-# encoder rings: the headline serving configuration) comes last, as it
-# quantizes the float weights in place.
-RING_MODES = {"float": ("float", None), "int8": ("int8", None),
-              "int8+int4": ("int8", "int4"), "q8+int8+int4": ("int8", "int4")}
-
-
 def _s16_exact(audio: np.ndarray) -> np.ndarray:
     """Audio rounded to multiples of 2^-15, so the s16 wire carries it
     exactly."""
     return (np.clip(np.round(audio * 32768.0), -32768, 32767) / 32768.0
             ).astype(np.float32)
-
-
-def _fleet_streams(cfg, audios) -> np.ndarray:
-    """The padded PCM streams the fleet consumes, one row per clip."""
-    from voxtral_tpu_torch.audio.mel import pad_audio_offline
-    from voxtral_tpu_torch.runtime.fleet import pcm_stream
-    rows = [pcm_stream(pad_audio_offline(a, cfg.audio, cfg.streaming), cfg)
-            for a in audios]
-    n = min(len(r) for r in rows)
-    return np.stack([r[:n] for r in rows]).astype(np.float32)
 
 
 def _fleet_drive(params, cfg, t_ada, streams, mode, plan, device):
@@ -2285,12 +2258,8 @@ def _fleet_drive(params, cfg, t_ada, streams, mode, plan, device):
     Returns (tokens [B, n] cpu, per-step (best_logit, top-2 vals) cpu)."""
     import torch
     from voxtral_tpu_torch.runtime import fleet as fl
-    kv, ekv = RING_MODES[mode]
     hop = cfg.audio.hop_length
-    b = streams.shape[0]
-    state = fl.init_fleet_state(cfg, b, enc_ring=ENC_RING, dec_ring=DEC_RING,
-                                max_mel_chunk=CHUNK_MEL, kv_dtype=kv,
-                                enc_kv_dtype=ekv, device=device)
+    state = init_state(cfg, streams.shape[0], mode, device)
     state, tok, _ = fl.fleet_bootstrap_pcm(
         params, cfg, state, torch.from_numpy(streams[:, :BOOT_MEL * hop]).to(device),
         t_ada)
@@ -2329,7 +2298,7 @@ def phase4():
                cfg.streaming.delay_tokens, cfg.decoder.dim, device=dev))
            for dev, p in (("cuda", params), ("cpu", params_cpu))}
     audios = [_s16_exact(synthetic_audio(7.0, seed)) for seed in (21, 22)]
-    streams = _fleet_streams(cfg, audios)
+    streams = fleet_streams(cfg, audios)
     n = CHUNK_MEL // 8
     on, off = np.array([True, True]), np.array([True, False])
     free = np.full((2, n), -1, np.int32)
@@ -2398,18 +2367,18 @@ def phase5():
     params = random_params(cfg, seed=0, device="cuda")
     t_ada = ada_scales(params["decoder"], time_conditioning(
         cfg.streaming.delay_tokens, cfg.decoder.dim, device="cuda"))
-    b, hop = 16, cfg.audio.hop_length
+    b, hop = STREAMS, cfg.audio.hop_length
     n = CHUNK_MEL // 8
     chunk_s = CHUNK_MEL * hop / cfg.audio.sample_rate
     lp = cfg.streaming.prompt_len
     layers_d, layers_e = cfg.decoder.layers, cfg.encoder.layers
-    streams = torch.from_numpy(_fleet_streams(
+    streams = torch.from_numpy(fleet_streams(
         cfg, [synthetic_audio(12.0, 200 + i) for i in range(b)])).cuda()
     active = torch.ones(b, dtype=torch.bool, device="cuda")
     forced = torch.full((b, n), -1, dtype=torch.int32, device="cuda")
     total = dict.fromkeys(_counts(), 0)
     results = {}
-    for mode, (kv, ekv) in RING_MODES.items():
+    for mode, (kv, _) in RING_MODES.items():
         dec_kernel = "ring_gqa_attention" if kv == "float" else "ring_gqa_attention_int8"
         q8 = mode.startswith("q8")
         if q8:        # consumes the bf16 tree leaf by leaf; t_ada stays valid
@@ -2423,9 +2392,7 @@ def phase5():
                 f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
         runs = []
         for rep in range(2):
-            state = fl.init_fleet_state(cfg, b, enc_ring=ENC_RING, dec_ring=DEC_RING,
-                                        max_mel_chunk=CHUNK_MEL, kv_dtype=kv,
-                                        enc_kv_dtype=ekv, device="cuda")
+            state = init_state(cfg, b, mode, "cuda")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             toks, walls = [], []
@@ -2511,9 +2478,8 @@ def phase5():
 
 
 def _device_activities():
-    """The profiler activities of the step, poll and feed profiles: device
-    activity only, whose kernel rows are all that
-    `tools.profile_fleet_step.device_rows` reads."""
+    """The profiler activities of the poll and feed profiles: device
+    activity only, whose kernel rows are all that `device_rows` reads."""
     from torch.profiler import ProfilerActivity
     return [ProfilerActivity.CUDA]
 
@@ -2523,14 +2489,7 @@ def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, m
     the unprofiled wall time `wall_s` of the previous step (same shapes, one
     stream of work, so kernels do not overlap) and the ring kernels' time.
     The rings are updated in place; `state` is not used again."""
-    import torch
-    from torch.profiler import profile
-    from voxtral_tpu_torch.runtime import fleet as fl
-    from voxtral_tpu_torch.tools.profile_fleet_step import device_rows, kernel_groups
-    with profile(activities=_device_activities()) as prof:
-        fl.fleet_step_masked(params, cfg, state, pcm, active, forced, t_ada)
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
+    rows = profile_step(params, cfg, state, pcm, active, forced, t_ada)
     g = {k: (us / 1e3, n) for k, (us, n) in kernel_groups(rows).items()}
     share = g["all"][0] / 1e3 / wall_s
     log(f"[5] profile {mode} (aged state): device busy {g['all'][0]:.3f} ms of "
@@ -2811,7 +2770,6 @@ def _profiled_poll(mgr):
     rows only), with the main kernels' shares."""
     import torch
     from torch.profiler import profile
-    from voxtral_tpu_torch.tools.profile_fleet_step import device_rows
     with profile(activities=_device_activities()) as prof:
         steps = mgr.poll()
         torch.cuda.synchronize()
@@ -2917,7 +2875,6 @@ def _timed_stream():
     import torch
     from torch.profiler import profile
     from voxtral_tpu_torch.runtime import VoxStream
-    from voxtral_tpu_torch.tools.profile_fleet_step import device_rows
 
     class TimedStream(VoxStream):
         made: list = []

@@ -220,16 +220,18 @@ def test_fleet_step_profile_groups_and_drive(monkeypatch):
     cfg = tiny_config()
     monkeypatch.setattr(pfs, "ENC_RING", 200)
     monkeypatch.setattr(pfs, "DEC_RING", 256)
+    monkeypatch.setattr(pfs, "WARM", 1)
     params = random_params(cfg, seed=0, device="cpu")
     t_ada = ada_scales(params["decoder"], time_conditioning(
         cfg.streaming.delay_tokens, cfg.decoder.dim, device="cpu"))
-    streams = pfs.fleet_streams(cfg, 2, 6.0, "cpu")
-    for mode in pfs.MODES:
-        if pfs.MODES[mode][2]:
+    streams = torch.from_numpy(pfs.fleet_streams(
+        cfg, [pfs.synthetic_audio(6.0, 200 + i) for i in range(2)]))
+    for mode in pfs.PROFILED:
+        if mode.startswith("q8"):
             params = quantize_params(params)
-        r = pfs.profile_mode(params, cfg, t_ada, streams, mode, 1)
+        r = pfs.profile_mode(params, cfg, t_ada, streams, mode)
         assert r["mode"] == mode and r["streams"] == 2 and r["step_wall_ms"] > 0
         assert r["launches"] == 0 and r["groups"]["all"] == dict(ms=0.0, launches=0)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
-            pfs.main([])
+            pfs.main()

@@ -6,7 +6,7 @@
 // over the last axis. Here it is one launch on x [rows, D] (bf16 or f32), w [D]
 // (bf16 or f32) and out [rows, D] in x's dtype. On the TPU, XLA also fuses the
 // layer's residual add before the norm and the `* (1 + ada)` after it
-// (voxtral_tpu/models/decoder.py:477-479, encoder.py:277-279); the fused entry
+// (voxtral_tpu/models/decoder.py:477-479, encoder.py:277-279); the fused form
 // does the same in one launch: h_new = h + delta, out = rms_norm(h_new, w)
 // (* scale). Every decoder token step makes 1 + 52 such calls and every
 // encoder chunk 1 + 64: each pass's first norm is plain, every later one
@@ -226,7 +226,7 @@ void launch_types(const Args& a, int x_dtype, int w_dtype, int vec) {
   }
 }
 
-// The checks both entries share: dtypes, the plan (vec, threads) against d,
+// The launch's checks: dtypes, the plan (vec, threads) against d,
 // and 16-byte alignment of every pointer the vector path reads or writes.
 bool valid(const Args& a, int x_dtype, int w_dtype, int vec) {
   const int wide = x_dtype == kF32 ? 4 : 8;
@@ -244,33 +244,24 @@ bool valid(const Args& a, int x_dtype, int w_dtype, int vec) {
 
 extern "C" {
 
-// x, out: [rows, d] dense in x_dtype (0 f32, 1 bf16); w: [d] in w_dtype. vec:
-// 1, or 16 / sizeof(x) with d % vec == 0 and x, w, out 16-byte aligned;
-// threads: a multiple of 32, at most 1024, with d / vec <= threads * 4 (both
-// from ops/norms.k4_plan). Returns the CUDA error code of the launch (0 =
-// launched).
-int rms_norm_launch(const void* x, const void* w, void* out, int rows, int d, int x_dtype,
-                    int w_dtype, int vec, int threads, float eps, void* stream) {
-  const Args a{x, nullptr, w, nullptr, nullptr, out, rows, d, eps, threads,
+// K4's one entry. x, out: [rows, d] dense in x_dtype (0 f32, 1 bf16); w: [d] in
+// w_dtype. delta and h_out: null for the plain norm, or [rows, d] dense in
+// x_dtype for the fused form (h_out = x + delta, out = rms_norm(h_out, w));
+// scale: null, or [d] in x_dtype with delta (out *= scale). vec: 1, or 16 /
+// sizeof(x) with d % vec == 0 and every pointer 16-byte aligned; threads: a
+// multiple of 32, at most 1024, with d / vec <= threads * 4 (both from
+// ops/norms.k4_plan). Returns the CUDA error code of the launch (0 = launched).
+int k4_launch(const void* x, const void* delta, const void* w, const void* scale, void* h_out,
+              void* out, int rows, int d, int x_dtype, int w_dtype, int vec, int threads,
+              float eps, void* stream) {
+  const Args a{x, delta, w, scale, h_out, out, rows, d, eps, threads,
                static_cast<cudaStream_t>(stream)};
-  if (!valid(a, x_dtype, w_dtype, vec)) return static_cast<int>(cudaErrorInvalidValue);
-  launch_types<false, false>(a, x_dtype, w_dtype, vec);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The fused form: h_out = h + delta and out = rms_norm(h_out, w) (* scale), in
-// one launch with K4's order. h, delta, h_out, out: [rows, d] dense in x_dtype;
-// scale: [d] in x_dtype, or null for none; w, vec, threads as rms_norm_launch,
-// with every pointer 16-byte aligned when vec != 1.
-int add_rms_norm_launch(const void* h, const void* delta, const void* w, const void* scale,
-                        void* h_out, void* out, int rows, int d, int x_dtype, int w_dtype,
-                        int vec, int threads, float eps, void* stream) {
-  const Args a{h, delta, w, scale, h_out, out, rows, d, eps, threads,
-               static_cast<cudaStream_t>(stream)};
-  if (delta == nullptr || h_out == nullptr || !valid(a, x_dtype, w_dtype, vec))
+  if ((delta == nullptr) != (h_out == nullptr) || (delta == nullptr && scale != nullptr) ||
+      !valid(a, x_dtype, w_dtype, vec))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (scale != nullptr) launch_types<true, true>(a, x_dtype, w_dtype, vec);
-  else launch_types<true, false>(a, x_dtype, w_dtype, vec);
+  if (delta == nullptr) launch_types<false, false>(a, x_dtype, w_dtype, vec);
+  else if (scale == nullptr) launch_types<true, false>(a, x_dtype, w_dtype, vec);
+  else launch_types<true, true>(a, x_dtype, w_dtype, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

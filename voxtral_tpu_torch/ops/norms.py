@@ -76,17 +76,7 @@ def k4_plan(d: int, dtype: torch.dtype) -> K4Plan:
 @functools.lru_cache(maxsize=None)
 def _lib():
     from voxtral_tpu_torch import _build
-    fn = _build.load("rms_norm.cu").rms_norm_launch
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp] + [ci] * 6 + [ctypes.c_float, vp]
-    fn.restype = ci
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _lib_fused():
-    from voxtral_tpu_torch import _build
-    fn = _build.load("rms_norm.cu").add_rms_norm_launch
+    fn = _build.load("rms_norm.cu").k4_launch
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp] * 6 + [ci] * 6 + [ctypes.c_float, vp]
     fn.restype = ci
@@ -111,25 +101,37 @@ def _check_weight(who: str, x: torch.Tensor, weight: torch.Tensor) -> int:
     return d
 
 
-def rms_norm_kernel(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """K4 on a CUDA x [..., D] (f32 or bf16) and weight [D] (f32 or bf16) on
-    the same card; returns x's shape and dtype. Raises on anything else."""
+def _k4_launch(name: str, x: torch.Tensor, weight: torch.Tensor, eps: float,
+               delta: torch.Tensor | None = None, scale: torch.Tensor | None = None):
+    """The body of both kernel entries: K4 on CUDA x [..., D], plain (delta
+    None) or fused. Returns [out], or [h_new, out] with a delta, in x's
+    shape and dtype, and counts the launch under `name`."""
     if x.device.type != "cuda":
-        raise ValueError(f"rms_norm_kernel takes a CUDA tensor, got one on {x.device}")
-    d = _check_weight("rms_norm", x, weight)
+        raise ValueError(f"{name}_kernel takes a CUDA tensor, got one on {x.device}")
+    d = _check_weight(name, x, weight)
     plan = k4_plan(d, x.dtype)
     rows = x.numel() // d
-    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    outs = [torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            for _ in range(1 if delta is None else 2)]
     if rows == 0:
-        return out
-    xd, wd = _dense_aligned(x), _dense_aligned(weight)
-    err = _lib()(xd.data_ptr(), wd.data_ptr(), out.data_ptr(), rows, d, _DTYPES[x.dtype],
+        return outs
+    # the dense copies stay referenced until the launch is queued
+    dense = [None if t is None else _dense_aligned(t) for t in (x, delta, weight, scale)]
+    xp, dp, wp, sp = (None if t is None else t.data_ptr() for t in dense)
+    hp = None if delta is None else outs[0].data_ptr()
+    err = _lib()(xp, dp, wp, sp, hp, outs[-1].data_ptr(), rows, d, _DTYPES[x.dtype],
                  _DTYPES[weight.dtype], plan.vec, plan.threads, eps,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"rms_norm kernel launch failed: CUDA error {err}")
-    LAUNCHES["rms_norm"] += 1
-    return out
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+    return outs
+
+
+def rms_norm_kernel(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """K4 on a CUDA x [..., D] (f32 or bf16) and weight [D] (f32 or bf16) on
+    the same card; returns x's shape and dtype. Raises on anything else."""
+    return _k4_launch("rms_norm", x, weight, eps)[0]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -175,25 +177,7 @@ def add_rms_norm_kernel(h: torch.Tensor, delta: torch.Tensor, weight: torch.Tens
     dtype, all on one card: returns (h + delta, rms_norm(h + delta) (*
     scale)) in h's shape and dtype. Raises on anything else."""
     _check_add_args(h, delta, scale)
-    if h.device.type != "cuda":
-        raise ValueError(f"add_rms_norm_kernel takes a CUDA tensor, got one on {h.device}")
-    d = _check_weight("add_rms_norm", h, weight)
-    plan = k4_plan(d, h.dtype)
-    rows = h.numel() // d
-    h_new = torch.empty(h.shape, dtype=h.dtype, device=h.device)
-    out = torch.empty(h.shape, dtype=h.dtype, device=h.device)
-    if rows == 0:
-        return h_new, out
-    hd, dd, wd = _dense_aligned(h), _dense_aligned(delta), _dense_aligned(weight)
-    sd = None if scale is None else _dense_aligned(scale)
-    err = _lib_fused()(hd.data_ptr(), dd.data_ptr(), wd.data_ptr(),
-                       None if sd is None else sd.data_ptr(), h_new.data_ptr(),
-                       out.data_ptr(), rows, d, _DTYPES[h.dtype], _DTYPES[weight.dtype],
-                       plan.vec, plan.threads, eps,
-                       torch.cuda.current_stream(h.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"add_rms_norm kernel launch failed: CUDA error {err}")
-    LAUNCHES["add_rms_norm"] += 1
+    h_new, out = _k4_launch("add_rms_norm", h, weight, eps, delta, scale)
     return h_new, out
 
 
@@ -202,9 +186,9 @@ def add_rms_norm(h: torch.Tensor, delta: torch.Tensor, weight: torch.Tensor,
     """h, delta: [..., D] of one dtype and shape; weight: [D]; scale: None
     or [D] in h's dtype. Returns (h + delta, rms_norm(h + delta, weight)
     (* scale)), both in h's dtype."""
-    _check_add_args(h, delta, scale)
-    if h.device.type == "cpu":
-        return add_rms_norm_plain(h, delta, weight, eps, scale)
-    if h.device.type != "cuda":
+    if h.device.type == "cuda":
+        return add_rms_norm_kernel(h, delta, weight, eps, scale)
+    if h.device.type != "cpu":
         raise ValueError(f"unsupported device {h.device}")
-    return add_rms_norm_kernel(h, delta, weight, eps, scale)
+    _check_add_args(h, delta, scale)
+    return add_rms_norm_plain(h, delta, weight, eps, scale)

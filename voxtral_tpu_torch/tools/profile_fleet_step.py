@@ -1,24 +1,27 @@
 """Where a fleet step's device time and launches go, by kernel group. The
 fleet step of chip_smoke.py phase 5 (full 4B width and depth in bf16, B =
 16 streams of different synthetic clips, 160-mel chunks of 20 tokens,
-dec_ring 2048, enc_ring 840) is bootstrapped and stepped `--warm` times,
-then one more step runs under torch.profiler (CUDA activity only). Printed
-per ring mode as one JSON line: the unprofiled wall of the step before,
-the device busy ms, and the ms and launches of each kernel group (torch's
-elementwise kernels, its reductions, K4's entries, the ring kernels, K2,
-K3, cuBLAS), with the card's name and power limit.
+dec_ring 2048, enc_ring 840) is bootstrapped and stepped WARM times, then
+one more step runs under torch.profiler (CUDA activity only). Printed for
+the float mode and the Q8 + int8 + int4 mode, one JSON line each: the
+unprofiled wall of the step before, the device busy ms, and the ms and
+launches of each kernel group (torch's elementwise kernels, its reductions,
+K4's entries, the ring kernels, K2, K3, cuBLAS), with the card's name and
+power limit.
 
-    python voxtral_tpu_torch/tools/profile_fleet_step.py [--modes float q8+int8+int4]
+    python voxtral_tpu_torch/tools/profile_fleet_step.py
 
 The port it profiles is the `voxtral_tpu_torch` that Python finds first:
 run by its path with another checkout's root on PYTHONPATH, this same code
 profiles that checkout's port (two commits compared in one call, on one
 card). Needs the card: it raises without CUDA.
+
+chip_smoke.py's fleet phases take their shapes, clips, ring modes and
+profile from here, so this tool's step is phase 5's step.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import time
@@ -26,9 +29,15 @@ import time
 import numpy as np
 import torch
 
-CHUNK_MEL, BOOT_MEL, DEC_RING, ENC_RING, STREAMS = 160, 320, 2048, 840, 16
-# name: (decoder ring kv dtype, encoder ring kv dtype, Q8 weights)
-MODES = {"float": ("float", None, False), "q8+int8+int4": ("int8", "int4", True)}
+CHUNK_MEL, BOOT_MEL, DEC_RING, ENC_RING = 160, 320, 2048, 840
+STREAMS, WARM = 16, 3
+# Ring modes, name: (decoder ring kv dtype, encoder ring kv dtype); a name
+# that starts with "q8" also takes Q8 weights. The Q8 mode (int8 decoder
+# rings, int4 encoder rings: the headline serving configuration) comes last,
+# as it quantizes the float weights in place.
+RING_MODES = {"float": ("float", None), "int8": ("int8", None),
+              "int8+int4": ("int8", "int4"), "q8+int8+int4": ("int8", "int4")}
+PROFILED = ("float", "q8+int8+int4")
 # kernel group: substrings of the lower-cased kernel names it sums, the port's
 # kernels and cuBLAS's first (cuBLAS's splitKreduce_kernel is no torch reduction)
 GROUPS = {"k4": ("rms_norm_kernel",), "ring_dec": ("ring_partial", "ring_merge", "ring_dec_"),
@@ -39,7 +48,7 @@ GROUPS = {"k4": ("rms_norm_kernel",), "ring_dec": ("ring_partial", "ring_merge",
 
 
 def synthetic_audio(seconds: float, seed: int) -> np.ndarray:
-    """chip_smoke.py's clip: a gliding tone with harmonics over noise, 16 kHz f32."""
+    """A gliding tone with harmonics over noise, 16 kHz f32."""
     rng = np.random.RandomState(seed)
     t = np.arange(int(seconds * 16000)) / 16000.0
     f0 = 150.0 + 60.0 * np.sin(2 * np.pi * 0.7 * t + rng.rand() * 6.28)
@@ -49,15 +58,23 @@ def synthetic_audio(seconds: float, seed: int) -> np.ndarray:
     return (0.1 * tone * env + 0.01 * rng.randn(t.size)).astype(np.float32)
 
 
-def fleet_streams(cfg, b: int, seconds: float, device) -> torch.Tensor:
-    """[b, n] padded PCM streams of `synthetic_audio` clips (seeds 200 +
-    i), as chip_smoke.py phase 5 feeds the fleet."""
+def fleet_streams(cfg, audios) -> np.ndarray:
+    """The padded PCM streams the fleet consumes, one row per clip."""
     from voxtral_tpu_torch.audio.mel import pad_audio_offline
     from voxtral_tpu_torch.runtime.fleet import pcm_stream
-    rows = [pcm_stream(pad_audio_offline(synthetic_audio(seconds, 200 + i), cfg.audio,
-                                         cfg.streaming), cfg) for i in range(b)]
+    rows = [pcm_stream(pad_audio_offline(a, cfg.audio, cfg.streaming), cfg) for a in audios]
     n = min(len(r) for r in rows)
-    return torch.from_numpy(np.stack([r[:n] for r in rows]).astype(np.float32)).to(device)
+    return np.stack([r[:n] for r in rows]).astype(np.float32)
+
+
+def init_state(cfg, b: int, mode: str, device, tp=None):
+    """A fresh fleet state of `b` streams in ring mode `mode` at the fleet's
+    chunk and ring sizes."""
+    from voxtral_tpu_torch.runtime.fleet import init_fleet_state
+    kv, ekv = RING_MODES[mode]
+    return init_fleet_state(cfg, b, enc_ring=ENC_RING, dec_ring=DEC_RING,
+                            max_mel_chunk=CHUNK_MEL, kv_dtype=kv, enc_kv_dtype=ekv,
+                            device=device, tp=tp)
 
 
 def device_rows(prof) -> list:
@@ -89,57 +106,59 @@ def kernel_groups(rows) -> dict:
     return {g: tuple(v) for g, v in out.items()}
 
 
-def profile_mode(params, cfg, t_ada, streams, mode, warm):
-    """Bootstrap, `warm` timed steps, then one profiled step of the fleet in
-    `mode`, on the device of `streams` (a CPU run rehearses the drive: its
-    profile holds no kernel rows). Returns the JSON-ready result."""
+def profile_step(params, cfg, state, pcm, active, forced, t_ada):
+    """One fleet step under torch.profiler, recording the device's activity
+    (the CPU's on a CPU `pcm`, which rehearses the drive: its profile holds
+    no kernel rows). The rings are updated in place. Returns `device_rows`."""
     from torch.profiler import ProfilerActivity, profile
 
+    from voxtral_tpu_torch.runtime.fleet import fleet_step_masked
+    cuda = pcm.device.type == "cuda"
+    with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
+        fleet_step_masked(params, cfg, state, pcm, active, forced, t_ada)
+        if cuda:
+            torch.cuda.synchronize()
+    return device_rows(prof)
+
+
+def profile_mode(params, cfg, t_ada, streams, mode):
+    """Bootstrap, WARM timed steps, then one profiled step of the fleet in
+    `mode` on the device of `streams` ([B, n] PCM). Returns the JSON-ready
+    result."""
     from voxtral_tpu_torch.runtime import fleet as fl
-    kv, ekv, _ = MODES[mode]
     hop = cfg.audio.hop_length
     b, dev = streams.shape[0], streams.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     active = torch.ones(b, dtype=torch.bool, device=dev)
     forced = torch.full((b, CHUNK_MEL // 8), -1, dtype=torch.int32, device=dev)
-    state = fl.init_fleet_state(cfg, b, enc_ring=ENC_RING, dec_ring=DEC_RING,
-                                max_mel_chunk=CHUNK_MEL, kv_dtype=kv, enc_kv_dtype=ekv,
-                                device=dev)
+    state = init_state(cfg, b, mode, dev)
     state, _, _ = fl.fleet_bootstrap_pcm(params, cfg, state, streams[:, :BOOT_MEL * hop], t_ada)
-    pos, walls = BOOT_MEL * hop, []
-    for _ in range(warm + 1):
-        pcm = streams[:, pos:pos + CHUNK_MEL * hop]
-        pos += CHUNK_MEL * hop
+    pos, wall = BOOT_MEL * hop, None
+    for _ in range(WARM):
         sync()
         t0 = time.perf_counter()
-        if len(walls) == warm:
-            with profile(activities=[ProfilerActivity.CUDA if dev.type == "cuda"
-                                     else ProfilerActivity.CPU]) as prof:
-                state, _, _ = fl.fleet_step_masked(params, cfg, state, pcm, active, forced,
-                                                   t_ada)
-                sync()
-        else:
-            state, _, _ = fl.fleet_step_masked(params, cfg, state, pcm, active, forced, t_ada)
-            sync()
-        walls.append(time.perf_counter() - t0)
-    groups = kernel_groups(device_rows(prof))
+        state, _, _ = fl.fleet_step_masked(params, cfg, state,
+                                           streams[:, pos:pos + CHUNK_MEL * hop], active,
+                                           forced, t_ada)
+        sync()
+        wall = time.perf_counter() - t0
+        pos += CHUNK_MEL * hop
+    groups = kernel_groups(profile_step(params, cfg, state,
+                                        streams[:, pos:pos + CHUNK_MEL * hop], active, forced,
+                                        t_ada))
     return dict(mode=mode, streams=b, tokens_per_step=CHUNK_MEL // 8,
-                step_wall_ms=1e3 * walls[-2], busy_ms=groups["all"][0] / 1e3,
+                step_wall_ms=1e3 * wall, busy_ms=groups["all"][0] / 1e3,
                 launches=groups["all"][1],
                 groups={g: dict(ms=us / 1e3, launches=n) for g, (us, n) in groups.items()})
 
 
-def main(argv=None) -> None:
+def main() -> None:
     import voxtral_tpu_torch
     from voxtral_tpu_torch import _build
     from voxtral_tpu_torch.config import voxtral_4b
     from voxtral_tpu_torch.models.decoder import ada_scales, time_conditioning
     from voxtral_tpu_torch.quant import quantize_params
     from voxtral_tpu_torch.weights import random_params
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--modes", nargs="+", default=list(MODES), choices=list(MODES))
-    ap.add_argument("--warm", type=int, default=3, help="unprofiled steps before the profiled one")
-    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_fleet_step needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -153,11 +172,12 @@ def main(argv=None) -> None:
     params = random_params(cfg, seed=0, device="cuda")
     t_ada = ada_scales(params["decoder"], time_conditioning(
         cfg.streaming.delay_tokens, cfg.decoder.dim, device="cuda"))
-    streams = fleet_streams(cfg, STREAMS, 12.0, "cuda")
-    for mode in sorted(args.modes, key=lambda m: MODES[m][2]):
-        if MODES[mode][2]:             # Q8 last: quantize_params consumes the bf16 tree
+    streams = torch.from_numpy(fleet_streams(
+        cfg, [synthetic_audio(12.0, 200 + i) for i in range(STREAMS)])).cuda()
+    for mode in PROFILED:
+        if mode.startswith("q8"):      # last: quantize_params consumes the bf16 tree
             params = quantize_params(params)
-        r = profile_mode(params, cfg, t_ada, streams, mode, args.warm)
+        r = profile_mode(params, cfg, t_ada, streams, mode)
         print(json.dumps(dict(port=voxtral_tpu_torch.__file__, device=smi, build_s=build_s,
                               **r)), flush=True)
 

@@ -81,11 +81,17 @@ Phases (any failure raises and the script exits non-zero):
      different clips, 160-mel chunks (20 tokens per step), dec_ring 2048,
      enc_ring 840, each mode (the Q8 mode from quantize_params of the bf16
      tree, last): bootstrap, 5 steps, one step on an aged state (both rings
-     read whole), run twice (tokens identical), with every kernel's
-     launches (and the Q8 large-M route's calls) checked per step (K4: one
-     rms_norm and 52 add_rms_norm a token, one and 64 an encoder chunk) and
-     one profiled step (its kernels' ms and launches, torch's elementwise
-     kernels among them).
+     read whole), run twice: run 0 eager, run 1 through the step graphs
+     (runtime/step_graph.py: its first step eager, the second captured as
+     a CUDA graph, the rest replayed). The runs' tokens and every state
+     tensor (rings, scales, slot tables, tails, cursors) must be equal bit
+     for bit, with every kernel's launches (and the Q8 large-M route's
+     calls) checked per step, a replay counting the launches its graph
+     makes (K4: one rms_norm and 52 add_rms_norm a token, one and 64 an
+     encoder chunk). One more step on each run's aged state is profiled
+     (eager on run 0's, replayed on run 1's): its kernels' ms and
+     launches, torch's elementwise kernels among them, and its busy share
+     of that run's aged step wall.
   6. The tools path: the six ported profile tools at their defaults
      (voxtral_tpu_torch.tools: the Q8 roofline through K2, T1 and K3; the
      bf16 weight stream through torch.matmul, T2 and T3; the ring read
@@ -104,7 +110,9 @@ Phases (any failure raises and the script exits non-zero):
      each rank must launch its decode ring kernel,
      K1-enc, K3, K4 and, on Q8 weights, K2 (their sum over ranks of the ring
      kernels is K1-tp's launches).
-  8. The serving runtime, FleetManager, on the card (runtime/manager.py).
+  8. The serving runtime, FleetManager, on the card (runtime/manager.py),
+     replaying the step as CUDA graphs (its default on the card) but in
+     8b's eager run.
      8a: full width, 2 + 2 layers, f32, B = 4, chunk 8 tokens, dec_ring
      256, on float rings and on Q8 weights with int8 + int4 rings: two
      streams with a third attached after the first poll, the same with
@@ -117,16 +125,19 @@ Phases (any failure raises and the script exits non-zero):
      transcribe_tokens_batch. 8b: full 4B width and depth, bf16, Q8
      weights with int8 + int4 rings, B = 16, chunk 20 tokens, dec_ring 2048:
      sixteen clips of 4-12 s (four attached after the first poll) fed in
-     1 s pieces, finished and drained, twice with pipeline_steps = 1 and
-     once with 2; every stream must finish, the three runs give the same
-     tokens, and each launches K1-int8, K1-enc, K2, K3 and K4. Logged:
-     audio-s/s through the manager, steps, the poll wall beside stats()'s
-     step_ms_total (the host share), the mean step wall beside phase 5's
-     direct step, peak memory, and the device busy share of a one-step
-     poll (profiled in the second run, over the first run's wall of it).
-     8c: token latency (bench.py's serving latency): B = 1, chunk 6 tokens,
-     int8 rings, n_alt 2, max_steps_per_poll 1; p50/p95 per poll over 50
-     feeds after 12 warm-up feeds, with pipeline_steps 1 and 2, logged.
+     1 s pieces, finished and drained, three times: step graphs with
+     pipeline_steps = 1, the eager step (step_graphs=False) with 1, and
+     step graphs with 2; every stream must finish, every stream of both
+     graph runs must equal the eager run's, and each run launches K1-int8,
+     K1-enc, K2, K3 and K4. Logged: audio-s/s through the manager, steps,
+     the poll wall beside stats()'s step_ms_total (the host share), the
+     mean step wall beside phase 5's direct step (eager or replayed), peak
+     memory, and the device busy share of a one-step poll (profiled in the
+     third run, over the first run's wall of it). 8c: token latency
+     (bench.py's serving latency): B = 1, chunk 6 tokens, int8 rings,
+     n_alt 2, max_steps_per_poll 1, step graphs; p50/p95 per poll over 50
+     feeds after 12 warm-up feeds, with pipeline_steps 1 and 2: each p95
+     must be under 480 ms (the chunk).
   9. The single-stream engine VoxStream, transcribe_audio and the CLI on
      the card (runtime/stream.py, __init__.py, cli.py). 9a: full width,
      2 + 2 layers, f32, one 3 s clip fed in 1 s pieces: the bucketed
@@ -143,12 +154,16 @@ Phases (any failure raises and the script exits non-zero):
      bucketed backend and the fused backend on phase 8b's Q8 tree with
      int8 + int4 rings, each twice with identical tokens and its kernels'
      launches checked (bucketed and auto: K1, K1-enc, K3, K4; Q8: K1-int8,
-     K1-enc, K2, K3, K4); logged: RTF, ms per generated token, peak memory and
-     the device busy share of a profiled 1 s feed that steps. 9c: `python3 -m
+     K1-enc, K2, K3, K4); the fused backends (B = 1 FleetManagers) replay
+     step graphs, the bucketed one runs eagerly; logged: RTF, ms per
+     generated token, peak memory and the device busy share of a profiled
+     1 s feed that steps. 9c: `python3 -m
      voxtral_tpu_torch.cli --random-init 0 --silent` as two subprocesses,
      `-i` the WAV and `--stdin` with its bytes: exit 0, and stdout is 9b's
      transcribe_audio text.
- 10. Multi-process data parallelism through FleetManager(tp=), ranks
+ 10. Multi-process data parallelism through FleetManager(tp=), eager (a
+     step under tp runs gloo collectives through the host, so it is not
+     captured), ranks
      spawned by parallel.launch.run_ranks on cuda:0 (gloo), each building
      the seed-0 weights on the card. 10a: full width, 2 + 2 layers, f32,
      chunk 8 tokens, dec_ring 256, float rings and Q8 weights with int8 +
@@ -170,12 +185,15 @@ Phases (any failure raises and the script exits non-zero):
      8b's steps; a probe on rank 0 finds no op that rounds a row apart at
      8 rows a call against 16, and every stream of both ranks' first run
      equals 8b's run 0 (each rank's share, at least TP_BF16_AGREE, and each
-     stream's logged), equal step counts;
+     stream's logged), equal step counts (8b's run 0 replays step graphs,
+     so these gates also hold eager ranks against graph replays);
      logged beside
      8b's one process: aggregate audio-s/s, per-rank steps, step ms, host
      share and peak memory (no claim: the two ranks time-slice one card).
 The next-to-last lines are the card's name/power limit and one JSON object
-with each kernel's numbers; the last line is the run's result as JSON.
+with each kernel's numbers; the last line is the run's result as JSON. The
+whole run, the kernels' build included, is meant to take at most 900 s on
+one H100 (the `[done]` line).
 Weights are random (seeded): tokens are meaningless but deterministic.
 """
 
@@ -2356,12 +2374,16 @@ def phase4():
 
 def phase5():
     """The fleet at full 4B width and depth in bf16, B = 16, each mode, run
-    twice. Returns (launches of the counted runs per kernel, results)."""
+    twice: run 0 eager, run 1 through step graphs from its second step (the
+    first eager, the second captured, the rest replayed); the runs' tokens
+    and every state tensor equal bit for bit. Returns (launches of the
+    counted runs per kernel, results)."""
     import torch
     from voxtral_tpu_torch.config import voxtral_4b
     from voxtral_tpu_torch.models.decoder import ada_scales, time_conditioning
     from voxtral_tpu_torch.quant import quantize_params
     from voxtral_tpu_torch.runtime import fleet as fl
+    from voxtral_tpu_torch.runtime.step_graph import FleetStepGraphs
     from voxtral_tpu_torch.weights import random_params
     cfg = voxtral_4b(torch.bfloat16, torch.bfloat16)
     params = random_params(cfg, seed=0, device="cuda")
@@ -2378,6 +2400,9 @@ def phase5():
     forced = torch.full((b, n), -1, dtype=torch.int32, device="cuda")
     total = dict.fromkeys(_counts(), 0)
     results = {}
+    # run 1's step kinds; its steady rate reads the replays among steps 2-4,
+    # run 0's the same eager steps
+    kinds = ["eager", "capture", "replay", "replay", "replay"]
     for mode, (kv, _) in RING_MODES.items():
         dec_kernel = "ring_gqa_attention" if kv == "float" else "ring_gqa_attention_int8"
         q8 = mode.startswith("q8")
@@ -2390,10 +2415,11 @@ def phase5():
             log(f"[5] quantize_params: {time.perf_counter() - t0:.2f} s, peak "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, after "
                 f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
-        runs = []
+        runs, finals, graphs = [], [], None
         for rep in range(2):
             state = init_state(cfg, b, mode, "cuda")
             torch.cuda.synchronize()
+            base_gib = torch.cuda.memory_allocated() / 2**30
             torch.cuda.reset_peak_memory_stats()
             toks, walls = [], []
 
@@ -2409,7 +2435,8 @@ def phase5():
                 final norm takes the place of the first); in Q8 mode K2 for the 7
                 matrices per decoder layer and token or prefilled stream
                 (M = 16 or 38 rows), the large-M route for the encoder's 7
-                per K1-enc call (B x 80 rows) and the adapter's 2."""
+                per K1-enc call (B x 80 rows) and the adapter's 2. A replayed
+                step counts the launches its graph makes."""
                 want = dict.fromkeys(total, 0)
                 want[dec_kernel] += layers_d * n_dec
                 want["ring_gqa_attention_enc"] += n_enc
@@ -2431,50 +2458,96 @@ def phase5():
                 walls.append((label, time.perf_counter() - t0))
                 got = _counts()                     # ... and ends
                 want = launches(n_dec, n_enc, n_prefill)
-                check(got == want, f"{mode} {label}: launches {got} != {want}")
+                check(got == want, f"{mode} run {rep} {label}: launches {got} != {want}")
                 for k, v in got.items():
                     total[k] += v
-                toks.append(tok)
+                toks.append(tok.clone())            # a replay's tokens live in its pool
                 return st
 
             state = timed("bootstrap", lambda: fl.fleet_bootstrap_pcm(
                 params, cfg, state, streams[:, :BOOT_MEL * hop], t_ada),
                 BOOT_MEL // 8 - (lp - 1), layers_e * (BOOT_MEL // CHUNK_MEL), b)
+            if rep == 1:
+                graphs = FleetStepGraphs(params, cfg, state)
             pos = BOOT_MEL * hop
             for step in range(6):
                 if step == 5:
-                    state = fl.age_fleet_state(cfg, state, 4096)
+                    aged = fl.age_fleet_state(cfg, state, 4096)
+                    state = aged if graphs is None else graphs.load_state(aged)
                 pcm = streams[:, pos:pos + CHUNK_MEL * hop]
                 pos += CHUNK_MEL * hop
-                state = timed("aged" if step == 5 else f"step{step}",
-                              lambda: fl.fleet_step_masked(params, cfg, state, pcm,
-                                                           active, forced, t_ada),
-                              n, layers_e)
+                if graphs is None:
+                    def fn():
+                        return fl.fleet_step_masked(params, cfg, state, pcm, active, forced,
+                                                    t_ada)
+                else:
+                    def fn():
+                        return graphs.step_masked(pcm, active, forced, t_ada)
+                state = timed("aged" if step == 5 else f"step{step}", fn, n, layers_e)
             peak = torch.cuda.max_memory_allocated() / 2**30
             tokens = torch.cat(toks, dim=1).cpu()
             check(bool(((tokens >= 0) & (tokens < cfg.decoder.vocab_size)).all()),
                   f"{mode}: token out of range")
-            busy = None
-            if rep == 1:
-                busy = profile_fleet_step(params, cfg, state, streams[:, pos:pos + CHUNK_MEL * hop],
-                                          active, forced, t_ada, walls[-1][1], mode)
             runs.append(tokens)
-            steady = [w for label, w in walls if label.startswith("step")]
-            r = dict(mode=mode, rep=rep, bootstrap_s=walls[0][1],
-                     step_ms=[1e3 * w for w in steady], aged_step_ms=1e3 * walls[-1][1],
-                     audio_s_per_s=b * chunk_s * len(steady) / sum(steady),
+            finals.append(state)
+            step_ms = [1e3 * w for label, w in walls if label.startswith("step")]
+            steady = step_ms[2:]
+            r = dict(mode=mode, rep=rep, step_graphs=rep == 1, bootstrap_s=walls[0][1],
+                     step_ms=step_ms, step_kinds=kinds if rep else ["eager"] * 5,
+                     aged_step_ms=1e3 * walls[-1][1],
+                     audio_s_per_s=b * chunk_s * len(steady) / (sum(steady) / 1e3),
                      aged_audio_s_per_s=b * chunk_s / walls[-1][1],
                      launches_per_step={k: v for k, v in launches(n, layers_e, 0).items()
                                         if v},
-                     peak_gib=peak, device_busy_share=busy)
-            log(f"[5] {json.dumps(r)}")
+                     base_gib=base_gib, peak_gib=peak)
             results[(mode, rep)] = r
-            del state
-            torch.cuda.empty_cache()
-        check(bool((runs[0] == runs[1]).all()), f"{mode}: tokens differ between runs")
+        check(bool((runs[0] == runs[1]).all()),
+              f"{mode}: the replayed run's tokens differ from the eager run's")
+        diff = _first_state_difference(finals[0], finals[1])
+        check(diff is None, f"{mode}: the replayed run's state differs from the eager run's "
+                            f"at {diff}")
+        # one more step on each run's aged state, profiled: eager on run 0's,
+        # replayed on run 1's; each over its own run's aged step wall
+        pcm = streams[:, pos:pos + CHUNK_MEL * hop]
+        for rep, g in ((0, None), (1, graphs)):
+            r = results[(mode, rep)]
+            r["device_busy_share"] = profile_fleet_step(
+                params, cfg, finals[rep], pcm, active, forced, t_ada,
+                r["aged_step_ms"] / 1e3, mode, g)
+            log(f"[5] {json.dumps(r)}")
+        graphs.close()
+        del state, finals, graphs, aged
+        torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     return total, results
+
+
+def _first_state_difference(a, b):
+    """The first field of two FleetStates whose bits differ (its path, e.g.
+    "decode.k_ring[3]"), or None."""
+    import torch
+
+    def fields(state, prefix):
+        for name, x in zip(state._fields, state):
+            if isinstance(x, tuple) and hasattr(x, "_fields"):
+                yield from fields(x, f"{prefix}{name}.")
+            elif isinstance(x, tuple):
+                for i, t in enumerate(x):
+                    yield f"{prefix}{name}[{i}]", t
+            else:
+                yield prefix + name, x
+
+    for (path, x), (_, y) in zip(fields(a, ""), fields(b, "")):
+        if (x is None) != (y is None):
+            return path
+        if x is None:
+            continue
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                x.contiguous().reshape(-1).view(torch.uint8),
+                y.contiguous().reshape(-1).view(torch.uint8)):
+            return path
+    return None
 
 
 def _device_activities():
@@ -2484,15 +2557,19 @@ def _device_activities():
     return [ProfilerActivity.CUDA]
 
 
-def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, mode):
-    """One more fleet step under torch.profiler: the device's busy share of
-    the unprofiled wall time `wall_s` of the previous step (same shapes, one
-    stream of work, so kernels do not overlap) and the ring kernels' time.
-    The rings are updated in place; `state` is not used again."""
-    rows = profile_step(params, cfg, state, pcm, active, forced, t_ada)
+def profile_fleet_step(params, cfg, state, pcm, active, forced, t_ada, wall_s, mode,
+                       graphs=None):
+    """One more fleet step under torch.profiler, eager or with `graphs` its
+    replay: the device's busy share of the unprofiled wall time `wall_s` of
+    the previous step (same shapes, one stream of work, so kernels do not
+    overlap) and the ring kernels' time. The rings are updated in place;
+    `state` is not used again."""
+    rows = profile_step(params, cfg, state, pcm, active, forced, t_ada, graphs)
     g = {k: (us / 1e3, n) for k, (us, n) in kernel_groups(rows).items()}
+    check(g["all"][1] > 0, f"[5] the profile of the {mode} step holds no kernel")
     share = g["all"][0] / 1e3 / wall_s
-    log(f"[5] profile {mode} (aged state): device busy {g['all'][0]:.3f} ms of "
+    how = "eager" if graphs is None else "replayed"
+    log(f"[5] profile {mode} {how} (aged state): device busy {g['all'][0]:.3f} ms of "
         f"{wall_s * 1e3:.2f} ms unprofiled wall (share {share:.4f}); K1-enc "
         f"{g['ring_enc'][0]:.3f} ms; decode ring kernel {g['ring_dec'][0]:.3f} ms; "
         f"cuBLAS GEMM rows {g['cublas'][0]:.3f} ms; K2 (w8a16) {g['k2'][0]:.3f} ms; "
@@ -2515,6 +2592,7 @@ MGR_MODES = {"float": dict(kv_dtype="float"),
              "q8+int8+int4": dict(kv_dtype="int8", enc_kv_dtype="int4")}
 MGR_GAP = 1e-2          # phase 4's exemption: a cpu top-2 logit gap below it
 SERVE_B, SERVE_CHUNK, SERVE_LATE = 16, 20, 4
+LATENCY_P95_MS = 480.0  # 8c: a poll's p95 under its 6-token chunk (0.48 s)
 
 
 def _gap_recorder():
@@ -2637,11 +2715,12 @@ def phase8a(total):
 
         def on_cuda(clips_, late=(), **kw):
             _reset_counts()
-            mgr = FleetManager(params, cfg, **base, **rings, **kw)
-            sids, _ = _mgr_serve(mgr, clips_, late)
-            for k, v in _counts().items():
-                total[k] += v
-            return _mgr_ids(mgr, sids)
+            with FleetManager(params, cfg, **base, **rings, **kw) as mgr:
+                check(mgr._graphs is not None, "[8a] a cuda manager without step graphs")
+                sids, _ = _mgr_serve(mgr, clips_, late)
+                for k, v in _counts().items():
+                    total[k] += v
+                return _mgr_ids(mgr, sids)
 
         def on_cpu(clips_, late=(), **kw):
             mgr = recorder(params_cpu, cfg, **base, **rings, device="cpu", **kw)
@@ -2688,11 +2767,13 @@ def phase8b(total, direct):
     """FleetManager at full 4B width and depth, bf16, Q8 weights with int8
     decoder + int4 encoder rings, B = 16, chunk 20 tokens, dec_ring 2048:
     sixteen clips of 4-12 s, four attached after the first poll, fed in
-    1 s pieces, finished and drained; twice with pipeline_steps = 1 and
-    once with 2. The second run profiles its first poll that takes one
-    step (that run's walls include the profiler's); the busy share is
-    over the first run's wall of the same poll. `direct`: phase 5's direct
-    step walls (ms) in this mode."""
+    1 s pieces, finished and drained; three runs: step graphs with
+    pipeline_steps = 1, the eager step (step_graphs=False) with 1, step
+    graphs with 2. Every stream of both graph runs equals the eager run's.
+    The third run profiles its first poll that takes one step (that run's
+    walls include the profiler's); the busy share is over the first run's
+    wall of the same poll. `direct`: phase 5's direct step walls (ms) in
+    this mode, {"eager": [...], "replayed": [...]}."""
     import torch
     from voxtral_tpu_torch.config import voxtral_4b
     from voxtral_tpu_torch.quant import quantize_params
@@ -2707,20 +2788,22 @@ def phase8b(total, direct):
                "fused_logits_argmax", "rms_norm", "add_rms_norm")
     ids, walls, results = [], [], []
     profiled = {}
-    for rep, depth in ((0, 1), (1, 1), (2, 2)):
+    for rep, depth, graphs in ((0, 1, None), (1, 1, False), (2, 2, None)):
 
         def poll(mgr, rnd):
             # a poll takes as many steps as its fullest buffer holds chunks
             # (no watchdog restart fires on these clips)
             chunks = [len(s.buf) // mgr.chunk_samp for s in mgr.slots if s.active]
-            if rep != 1 or profiled or max(chunks) != 1:
+            if rep != 2 or profiled or max(chunks) != 1:
                 return mgr.poll()
             profiled.update(_profiled_poll(mgr), round=rnd, rows=chunks.count(1))
             return profiled["steps"]
 
         mgr = FleetManager(params, cfg, SERVE_B, chunk_tokens=SERVE_CHUNK, dec_ring=2048,
                            kv_dtype="int8", enc_kv_dtype="int4",
-                           pipeline_steps=depth)
+                           pipeline_steps=depth, step_graphs=graphs)
+        check((mgr._graphs is None) == (graphs is False),
+              f"[8b] run {rep}: step graphs {mgr._graphs is not None}")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()                          # a main-path run starts
@@ -2739,29 +2822,38 @@ def phase8b(total, direct):
         walls.append(run_walls)
         st = mgr.stats()
         poll_s = sum(w for _, w in run_walls)
-        r = dict(rep=rep, pipeline_steps=depth, streams=SERVE_B, audio_s=audio_s,
+        mgr.close()
+        r = dict(rep=rep, pipeline_steps=depth, step_graphs=graphs is None,
+                 streams=SERVE_B, audio_s=audio_s,
                  wall_s=wall, audio_s_per_s=audio_s / wall, steps=st["steps"],
                  polls=len(run_walls), steps_per_poll=[k for k, _ in run_walls],
                  poll_wall_ms=1e3 * poll_s, step_ms_total=mgr.step_ms_total,
                  host_share=1.0 - mgr.step_ms_total / (1e3 * poll_s),
                  step_ms=mgr.step_ms_total / st["steps"],
-                 direct_step_ms=float(np.median(direct)),
+                 direct_step_ms=float(np.median(direct["eager" if graphs is False
+                                                       else "replayed"])),
                  peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                  hbm_used_gb=st.get("hbm_used_gb"), generated=st["generated"],
                  restarts=st["restarts"], launches={k: got[k] for k in kernels},
-                 walls_include_profiler=rep == 1)
+                 walls_include_profiler=rep == 2)
         log(f"[8b] {json.dumps(r)}")
         results.append(r)
-    check(ids[1] == ids[0], "[8b] tokens differ between the two runs")
-    check(ids[2] == ids[0], "[8b] pipeline_steps = 2 changed the tokens")
+    for rep in (0, 2):
+        diff = [name for name in ids[1] if ids[rep][name] != ids[1][name]]
+        check(not diff, f"[8b] run {rep} (step graphs, pipeline_steps "
+                        f"{results[rep]['pipeline_steps']}) differs from the eager run on "
+                        f"streams {diff}")
     check(profiled.get("steps") == 1, f"[8b] profiled poll: {profiled}")
     steps0, wall0 = walls[0][profiled["round"]]
+    steps1, wall1 = walls[1][profiled["round"]]
     check(steps0 == 1, f"[8b] run 0 took {steps0} steps in the profiled poll's round")
-    log(f"[8b] profiled poll (round {profiled['round']}, {profiled['rows']} of "
-        f"{SERVE_B} streams stepping): device busy {profiled['busy_ms']:.3f} ms of the "
-        f"same poll's unprofiled wall {1e3 * wall0:.2f} ms in run 0 (share "
-        f"{profiled['busy_ms'] / (1e3 * wall0):.4f}); phase 5's direct step wall, "
-        f"median {np.median(direct):.2f} ms")
+    log(f"[8b] profiled poll through step graphs (round {profiled['round']}, "
+        f"{profiled['rows']} of {SERVE_B} streams stepping): device busy "
+        f"{profiled['busy_ms']:.3f} ms of the same poll's unprofiled wall {1e3 * wall0:.2f} ms "
+        f"in run 0 (share {profiled['busy_ms'] / (1e3 * wall0):.4f}); the eager run's wall of "
+        f"that poll {1e3 * wall1:.2f} ms ({steps1} steps); phase 5's direct step wall, median "
+        f"eager {np.median(direct['eager']):.2f} ms, replayed "
+        f"{np.median(direct['replayed']):.2f} ms")
     return params, cfg, results, ids[0]
 
 
@@ -2795,7 +2887,9 @@ def phase8c(total, params, cfg):
     the Q8 weights, n_alt = 2, alt_cutoff 0.95, max_steps_per_poll = 1;
     12 warm-up feeds, then 50 timed ones; every poll's wall enters the
     distribution. Two managers, pipeline_steps = 1 and 2, take their feeds
-    in turns, so both see the same conditions. Logged, not gated."""
+    in turns, so both see the same conditions. Both replay step graphs,
+    and each p95 must be under LATENCY_P95_MS (the chunk's 480 ms: a live
+    caller must not fall behind)."""
     from voxtral_tpu_torch.runtime import FleetManager
     mgrs = []
     for depth in (1, 2):
@@ -2830,12 +2924,18 @@ def phase8c(total, params, cfg):
         total[k] += v
     for (mgr, sid, _), polls, g0 in zip(mgrs, raw, n0):
         ms = sorted(x for p in polls for x in p)
-        r = dict(pipeline_steps=mgr.pipeline_steps, p50_ms=ms[len(ms) // 2],
+        r = dict(pipeline_steps=mgr.pipeline_steps, step_graphs=mgr._graphs is not None,
+                 p50_ms=ms[len(ms) // 2],
                  p95_ms=ms[int(len(ms) * 0.95)], max_poll_ms=ms[-1], polls=len(ms),
                  catch_up_polls=sum(len(p) - 1 for p in polls),
                  tokens_per_feed=(mgr.slots[sid].generated - g0) / 50,
                  restarts=mgr.slots[sid].restarts, chunk_s=6 * 0.08)
         log(f"[8c] {json.dumps(r)}")
+        check(r["step_graphs"], "[8c] a manager without step graphs")
+        check(r["p95_ms"] < LATENCY_P95_MS,
+              f"[8c] pipeline_steps {mgr.pipeline_steps}: p95 {r['p95_ms']:.2f} ms is not "
+              f"under {LATENCY_P95_MS} ms")
+        mgr.close()
 
 
 def phase8(direct):
@@ -3103,9 +3203,14 @@ def phase9b(total, q8_params, cfg):
             check(all(0 <= t < cfg.decoder.vocab_size for t in s.generated_ids),
                   f"[9b] {backend}: token out of range")
             ids.append(s.generated_ids)
+            graphs = s._mgr is not None and s._mgr._graphs is not None
+            check(graphs == (backend != "bucketed"),
+                  f"[9b] {backend}: step graphs {graphs}")
+            if s._mgr is not None:
+                s._mgr.close()
             if rep == 0:
                 walls0 = s.walls
-                r = dict(backend=backend, audio_s=audio_s, wall_s=wall,
+                r = dict(backend=backend, step_graphs=graphs, audio_s=audio_s, wall_s=wall,
                          rtf=wall / audio_s, generated=s.n_generated,
                          ms_per_token=1e3 * wall / max(s.n_generated, 1),
                          feeds=len(s.walls), feed_ms_max=1e3 * max(s.walls),
@@ -3737,7 +3842,9 @@ def main() -> int:
     k1tp_launches, _ = phase7()
     log(f"[7] done at {time.perf_counter() - t_start:.1f} s")
     check(k1tp_launches > 0, "the TP path launched no ring attention kernel")
-    launches8, q8_params, cfg4b, serve_ref = phase8(results5[("q8+int8+int4", 1)]["step_ms"])
+    launches8, q8_params, cfg4b, serve_ref = phase8(
+        {"eager": results5[("q8+int8+int4", 0)]["step_ms"][2:],
+         "replayed": results5[("q8+int8+int4", 1)]["step_ms"][2:]})
     log(f"[8] done at {time.perf_counter() - t_start:.1f} s")
     launches9 = phase9(q8_params, cfg4b)
     del q8_params

@@ -22,6 +22,11 @@ streams, heads / n_model), a step takes the rank's own streams' audio and
 returns their tokens; the collectives are the model code's (models/*.py).
 `fleet_reset_slots` and `age_fleet_state` need no `tp`: they touch only the
 per-stream tables of the state they are given.
+
+`copy_state` writes one state's values into another's own tensors, and
+`fleet_reset_slots_` resets slots that way: a captured step
+(runtime/step_graph.py) reads and writes the same state tensors on every
+replay, so whatever changes the state between steps must land in them.
 """
 
 from __future__ import annotations
@@ -416,3 +421,50 @@ def fleet_reset_slots(cfg: VoxtralConfig, state: FleetState, mask, *,
         pcm_tail=torch.where(mask[:, None], 0.0, state.pcm_tail),
         mel_tail=torch.where(m3, 0.0, state.mel_tail),
         conv0_tail=torch.where(m3, 0.0, state.conv0_tail))
+
+
+def fleet_reset_slots_(cfg: VoxtralConfig, state: FleetState, mask, *,
+                       full: bool) -> FleetState:
+    """fleet_reset_slots written into `state`'s own tensors (every tensor
+    keeps its storage). Returns `state`."""
+    copy_state(state, fleet_reset_slots(cfg, state, mask, full=full))
+    return state
+
+
+def state_leaves(state) -> list:
+    """The tensors of a FleetState (or of its encoder or decode part) in
+    field order, None where a field is None (the scale tables of float
+    rings)."""
+    out = []
+    for x in state:
+        if x is None or isinstance(x, torch.Tensor):
+            out.append(x)
+        else:                           # a nested state or a tuple of layers
+            out.extend(state_leaves(x))
+    return out
+
+
+def copy_state(dst, src) -> None:
+    """Copy every tensor of state `src` into the same field of `dst`, in
+    place: the same shapes and dtypes, fields `src` shares with `dst`
+    skipped. A `src` tensor that shares storage with another tensor of
+    `dst` is cloned first, so no copy reads a tensor an earlier copy
+    wrote."""
+    dl, sl = state_leaves(dst), state_leaves(src)
+    if len(dl) != len(sl):
+        raise ValueError(f"states of {len(dl)} and {len(sl)} tensors")
+    storages = {d.untyped_storage().data_ptr() for d in dl if d is not None}
+    pairs = []
+    for d, s in zip(dl, sl):
+        if (d is None) != (s is None):
+            raise ValueError("states differ in which fields are None")
+        if d is None or s is d:
+            continue
+        if d.shape != s.shape or d.dtype != s.dtype:
+            raise ValueError(f"state field {tuple(s.shape)} {s.dtype} does not fit "
+                             f"{tuple(d.shape)} {d.dtype}")
+        if s.untyped_storage().data_ptr() in storages:
+            s = s.clone()
+        pairs.append((d, s))
+    for d, s in pairs:
+        d.copy_(s)

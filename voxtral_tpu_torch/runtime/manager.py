@@ -40,8 +40,18 @@ ahead of the card; the manager keeps it that way:
 - every kernel launch and copy stays on the one compute stream (the
   kernels that merge through a zeroed counter buffer per card need it), so
   a reset queued while a step runs is ordered after it;
-- the step writes the rings in place and returns the other fields new:
-  `self.state` is always the step's (or the reset's) return.
+- on CUDA without `tp` the step is replayed as one CUDA graph per shape
+  (runtime/step_graph.py, the counterpart of the JAX manager's one
+  compiled program a step): its first call at a shape runs eagerly, the
+  second captures it, later ones replay it, and a new chunk size is a new
+  shape. `self.state` is then the graph's own state, which every replay
+  reads and writes: the per-slot resets write into its tensors
+  (fleet_reset_slots_), and whatever reads it (retained_kv, stats) reads
+  it. `step_graphs=False` runs the eager step instead, the graph's plain
+  version; the CPU and `tp=` (gloo collectives through the host) always
+  run it;
+- the eager step writes the rings in place and returns the other fields
+  new: `self.state` is its return, and resets write into it in place.
 On the CPU the same code runs its copies as plain copies.
 
 Two differences from the JAX manager, both faults of the reference:
@@ -89,9 +99,10 @@ from voxtral_tpu_torch.parallel.sharding import shard_params
 from voxtral_tpu_torch.quant import Quantized
 from voxtral_tpu_torch.runtime.alts import select_alts
 from voxtral_tpu_torch.runtime.fleet import (
-    fleet_reset_slots, fleet_step_masked, init_fleet_state, pack_wire,
+    fleet_reset_slots_, fleet_step_masked, init_fleet_state, pack_wire,
     pcm_stream_skew,
 )
+from voxtral_tpu_torch.runtime.step_graph import FleetStepGraphs
 from voxtral_tpu_torch.utils import device_memory_gb, resolve_device
 
 MAX_DECODE_KV = 2000              # voxtral.c:412
@@ -187,7 +198,8 @@ class FleetManager:
                  wire_dtype: str = "f32", monitor=None,
                  monitor_slow_ms: float = 40.0,
                  max_steps_per_poll: int | None = None,
-                 pipeline_steps: int = 1, device="cuda", tp=None):
+                 pipeline_steps: int = 1, device="cuda", tp=None,
+                 step_graphs: bool | None = None):
         # monitor: optional per-slot pipeline-event hook `monitor(sid, sym)`
         # with the reference's --monitor symbol set (README.md:105-130):
         # ▪/▸ text decode fast/slow, ▫/▹ control-only, ✗/✘ invalid, ◦ EOS,
@@ -201,9 +213,14 @@ class FleetManager:
         # tp: this rank's TensorParallel for multi-process serving (see the
         # module docstring); `params` is the whole tree, sliced here, and
         # `batch` must divide by the data axis.
+        # step_graphs: replay the step as CUDA graphs (None: on CUDA without
+        # tp; False: the eager step; True: raises where capture cannot run).
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
+        if step_graphs and (dev.type != "cuda" or tp is not None):
+            raise ValueError(f"step_graphs=True needs CUDA and no tp (device {dev}, "
+                             f"tp {tp is not None})")
         p_dev = _first_tensor(params).device
         if p_dev != dev:
             raise RuntimeError(
@@ -246,6 +263,9 @@ class FleetManager:
             cfg, batch=batch, enc_ring=enc_ring, dec_ring=dec_ring,
             max_mel_chunk=self.max_chunk_tokens * 8, kv_dtype=kv_dtype,
             enc_kv_dtype=enc_kv_dtype, device=dev, tp=tp)
+        self._graphs = None
+        if step_graphs is not False and dev.type == "cuda" and tp is None:
+            self._graphs = FleetStepGraphs(params, cfg, self.state)
         # slot ids are LOCAL rows (the global rows on one process)
         self.slots = [_Slot() for _ in range(self.local_batch)]
         self._pending_resets: dict = {}    # local sid -> full: bool
@@ -308,8 +328,10 @@ class FleetManager:
     def set_chunk_tokens(self, chunk_tokens: int):
         """Change the step size (tokens per step). Device state is
         untouched: the pending blocks were sized by max_chunk_tokens at
-        init, so any chunk up to that bound folds exactly. Must be called
-        between polls (no staged chunk in flight)."""
+        init, so any chunk up to that bound folds exactly. With step graphs
+        a new size is a new shape: its first step runs eagerly and its
+        second is captured, as the JAX manager compiles a new program. Must
+        be called between polls (no staged chunk in flight)."""
         if self._staged_next is not None or self._dispatched:
             raise RuntimeError("chunk change with a step in flight")
         if chunk_tokens > self.max_chunk_tokens:
@@ -433,11 +455,15 @@ class FleetManager:
                         pack_wire(st.pcm_host, st.active, st.forced))
                     st.dirty = False
                 st.t_dispatch = time.perf_counter()
-                self.state, tokens, aux = fleet_step_masked(
-                    self.params, self.cfg, self.state, st.pcm_dev,
-                    None, None, self.t_ada, collect_topk=topk,
-                    stop_at_eos=not self.continuous, wire_packed=True,
-                    tp=self.tp)
+                kw = dict(collect_topk=topk, stop_at_eos=not self.continuous,
+                          wire_packed=True)
+                if self._graphs is not None:
+                    self.state, tokens, aux = self._graphs.step_masked(
+                        st.pcm_dev, None, None, self.t_ada, **kw)
+                else:
+                    self.state, tokens, aux = fleet_step_masked(
+                        self.params, self.cfg, self.state, st.pcm_dev,
+                        None, None, self.t_ada, tp=self.tp, **kw)
                 st.out = self._start_fetch(aux["packed"] if topk else tokens)
                 self._dispatched.append(st)
                 dispatched += 1
@@ -591,8 +617,9 @@ class FleetManager:
 
     def _apply_resets(self):
         """Apply the queued per-slot resets: at most one full and one
-        decoder-only fleet_reset_slots call. Unlike the JAX manager's, they
-        are not agreed over ranks: the reset runs no collective."""
+        decoder-only fleet_reset_slots call, written into the state's own
+        tensors (a captured step reads those). Unlike the JAX manager's,
+        they are not agreed over ranks: the reset runs no collective."""
         if not self._pending_resets:
             return
         dec = np.zeros(self.local_batch, bool)
@@ -601,11 +628,9 @@ class FleetManager:
             (full if f else dec)[sid] = True
         self._pending_resets.clear()
         if full.any():
-            self.state = fleet_reset_slots(self.cfg, self.state,
-                                           self._put(full), full=True)
+            fleet_reset_slots_(self.cfg, self.state, self._put(full), full=True)
         if dec.any():
-            self.state = fleet_reset_slots(self.cfg, self.state,
-                                           self._put(dec), full=False)
+            fleet_reset_slots_(self.cfg, self.state, self._put(dec), full=False)
 
     def _mon_decode(self, sid: int, s: _Slot, steps: int, text: int,
                     control: int, invalid: int, eos_step: bool):
@@ -798,8 +823,12 @@ class FleetManager:
         }
 
     def close(self):
-        """Nothing to release: the JAX manager's mesh context has no
-        counterpart here, and the process group belongs to the caller."""
+        """Free the step's graphs and their pool. The JAX manager's mesh
+        context has no counterpart here, and the process group belongs to
+        the caller."""
+        if self._graphs is not None:
+            self._graphs.close()
+            self._graphs = None
 
     def __enter__(self):
         return self

@@ -2,12 +2,14 @@
 fleet step of chip_smoke.py phase 5 (full 4B width and depth in bf16, B =
 16 streams of different synthetic clips, 160-mel chunks of 20 tokens,
 dec_ring 2048, enc_ring 840) is bootstrapped and stepped WARM times, then
-one more step runs under torch.profiler (CUDA activity only). Printed for
-the float mode and the Q8 + int8 + int4 mode, one JSON line each: the
-unprofiled wall of the step before, the device busy ms, and the ms and
-launches of each kernel group (torch's elementwise kernels, its reductions,
-K4's entries, the ring kernels, K2, K3, cuBLAS), with the card's name and
-power limit.
+one more step runs under torch.profiler (CUDA activity only); then the same
+on a fresh state through step graphs (runtime/step_graph.py: the first step
+eager, the second captured, the third and the profiled one replayed).
+Printed for the float mode and the Q8 + int8 + int4 mode, one JSON line
+each: the unprofiled wall of the step before, the device busy ms, and the
+ms and launches of each kernel group (torch's elementwise kernels, its
+reductions, K4's entries, the ring kernels, K2, K3, cuBLAS), eager and
+under `replayed`, with the card's name and power limit.
 
     python voxtral_tpu_torch/tools/profile_fleet_step.py
 
@@ -106,26 +108,33 @@ def kernel_groups(rows) -> dict:
     return {g: tuple(v) for g, v in out.items()}
 
 
-def profile_step(params, cfg, state, pcm, active, forced, t_ada):
+def profile_step(params, cfg, state, pcm, active, forced, t_ada, graphs=None):
     """One fleet step under torch.profiler, recording the device's activity
     (the CPU's on a CPU `pcm`, which rehearses the drive: its profile holds
-    no kernel rows). The rings are updated in place. Returns `device_rows`."""
+    no kernel rows): the eager step on `state`, or with `graphs` (a
+    runtime.step_graph.FleetStepGraphs) its step on the state it owns,
+    replayed once it is captured. The rings are updated in place. Returns
+    `device_rows`."""
     from torch.profiler import ProfilerActivity, profile
 
     from voxtral_tpu_torch.runtime.fleet import fleet_step_masked
     cuda = pcm.device.type == "cuda"
     with profile(activities=[ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
-        fleet_step_masked(params, cfg, state, pcm, active, forced, t_ada)
+        if graphs is None:
+            fleet_step_masked(params, cfg, state, pcm, active, forced, t_ada)
+        else:
+            graphs.step_masked(pcm, active, forced, t_ada)
         if cuda:
             torch.cuda.synchronize()
     return device_rows(prof)
 
 
-def profile_mode(params, cfg, t_ada, streams, mode):
-    """Bootstrap, WARM timed steps, then one profiled step of the fleet in
-    `mode` on the device of `streams` ([B, n] PCM). Returns the JSON-ready
-    result."""
+def _profile_chain(params, cfg, t_ada, streams, mode, replayed):
+    """Bootstrap, WARM timed steps, then one profiled step; `replayed`: the
+    steps through step graphs (the first eager, the second captured, the
+    rest and the profiled one replayed)."""
     from voxtral_tpu_torch.runtime import fleet as fl
+    from voxtral_tpu_torch.runtime.step_graph import FleetStepGraphs
     hop = cfg.audio.hop_length
     b, dev = streams.shape[0], streams.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
@@ -133,23 +142,39 @@ def profile_mode(params, cfg, t_ada, streams, mode):
     forced = torch.full((b, CHUNK_MEL // 8), -1, dtype=torch.int32, device=dev)
     state = init_state(cfg, b, mode, dev)
     state, _, _ = fl.fleet_bootstrap_pcm(params, cfg, state, streams[:, :BOOT_MEL * hop], t_ada)
+    graphs = FleetStepGraphs(params, cfg, state) if replayed else None
     pos, wall = BOOT_MEL * hop, None
     for _ in range(WARM):
+        pcm = streams[:, pos:pos + CHUNK_MEL * hop]
         sync()
         t0 = time.perf_counter()
-        state, _, _ = fl.fleet_step_masked(params, cfg, state,
-                                           streams[:, pos:pos + CHUNK_MEL * hop], active,
-                                           forced, t_ada)
+        if graphs is None:
+            state, _, _ = fl.fleet_step_masked(params, cfg, state, pcm, active, forced, t_ada)
+        else:
+            graphs.step_masked(pcm, active, forced, t_ada)
         sync()
         wall = time.perf_counter() - t0
         pos += CHUNK_MEL * hop
     groups = kernel_groups(profile_step(params, cfg, state,
                                         streams[:, pos:pos + CHUNK_MEL * hop], active, forced,
-                                        t_ada))
-    return dict(mode=mode, streams=b, tokens_per_step=CHUNK_MEL // 8,
-                step_wall_ms=1e3 * wall, busy_ms=groups["all"][0] / 1e3,
+                                        t_ada, graphs))
+    if graphs is not None:
+        graphs.close()
+    return dict(step_wall_ms=1e3 * wall, busy_ms=groups["all"][0] / 1e3,
                 launches=groups["all"][1],
                 groups={g: dict(ms=us / 1e3, launches=n) for g, (us, n) in groups.items()})
+
+
+def profile_mode(params, cfg, t_ada, streams, mode):
+    """The fleet in `mode` on the device of `streams` ([B, n] PCM):
+    bootstrap, WARM timed steps, then one profiled step, eagerly and, on
+    the card, through step graphs (`replayed`: the last warm step and the
+    profiled one are replays). Returns the JSON-ready result."""
+    r = dict(mode=mode, streams=streams.shape[0], tokens_per_step=CHUNK_MEL // 8,
+             **_profile_chain(params, cfg, t_ada, streams, mode, replayed=False))
+    if streams.device.type == "cuda":
+        r["replayed"] = _profile_chain(params, cfg, t_ada, streams, mode, replayed=True)
+    return r
 
 
 def main() -> None:

@@ -67,8 +67,16 @@ Phases (any failure raises and the script exits non-zero):
      versions) must give equal tokens and best logits, with float weights
      and with Q8 weights (quantize_params: K2 and K3 on the card).
   3. Offline serving at full 4B width and depth in bf16: three requests
-     (about 3 s, 8 s and 10 s of audio), run twice; tokens must be
-     identical, and K1's launch count must equal 26 x decode steps.
+     (about 3 s, 8 s and 10 s of audio), once eager (step_graphs=False) and
+     twice through the weights' cached DecodeGraphs (runtime/step_graph.py:
+     the prefill and each decode call's bucket captured as CUDA graphs at
+     their second call and replayed); each graph pass must equal the eager
+     pass bit for bit in tokens and best logits, and K1's launch count must
+     equal 26 x the decode steps run (each call padded to its bucket).
+     Logged per request: ms per decode step, RTF, the keys captured and
+     their capture seconds, peak memory; the resident decode state; one
+     more replayed 3 s request under torch.profiler (its kernels and its
+     busy share of the replayed wall).
   4. The fleet step, reduced depth (2+2 layers), full width, f32, B = 2, in
      the three ring modes (float; int8; int8 decoder + int4 encoder) and
      the Q8 mode (Q8 weights with int8 + int4 rings): a bootstrap and 4
@@ -141,8 +149,9 @@ Phases (any failure raises and the script exits non-zero):
   9. The single-stream engine VoxStream, transcribe_audio and the CLI on
      the card (runtime/stream.py, __init__.py, cli.py). 9a: full width,
      2 + 2 layers, f32, one 3 s clip fed in 1 s pieces: the bucketed
-     backend, the fused backend on float rings and the fused backend on Q8
-     weights with int8 + int4 rings, each on cuda against cpu (quantized
+     backend (replaying graphs on cuda), the fused backend on float rings and
+     the fused backend on Q8 weights with int8 + int4 rings, each on cuda
+     against cpu (quantized
      rings: phase 4's top-2 gap rule); in float mode fused == bucketed ==
      transcribe_tokens_batch, a mid-stream set_interval on fused == the
      batch pipeline, and a mid-stream flush() on fused == bucketed given
@@ -151,13 +160,15 @@ Phases (any failure raises and the script exits non-zero):
      the native binding, within 2e-4 of the numpy MelStream. 9b: full 4B
      width and depth, bf16, seed-0 weights, one 12 s clip (a 16-bit WAV,
      read back) through transcribe_audio (auto: fused on float rings), the
-     bucketed backend and the fused backend on phase 8b's Q8 tree with
-     int8 + int4 rings, each twice with identical tokens and its kernels'
-     launches checked (bucketed and auto: K1, K1-enc, K3, K4; Q8: K1-int8,
-     K1-enc, K2, K3, K4); the fused backends (B = 1 FleetManagers) replay
-     step graphs, the bucketed one runs eagerly; logged: RTF, ms per
-     generated token, peak memory and the device busy share of a profiled
-     1 s feed that steps. 9c: `python3 -m
+     bucketed backend eager (step_graphs=False) and replaying its bucket
+     programs as CUDA graphs (the default), and the fused backend on phase
+     8b's Q8 tree with int8 + int4 rings, each twice with identical tokens
+     and its kernels' launches checked (bucketed and auto: K1, K1-enc, K3,
+     K4; Q8: K1-int8, K1-enc, K2, K3, K4); the graph bucketed runs must
+     equal the eager ones bit for bit in tokens and launches; the fused
+     backends (B = 1 FleetManagers) replay step graphs; logged: RTF, ms per
+     generated token, each feed's wall, the captures' seconds, peak memory
+     and the device busy share of a profiled 1 s feed that steps. 9c: `python3 -m
      voxtral_tpu_torch.cli --random-init 0 --silent` as two subprocesses,
      `-i` the WAV and `--stdin` with its bytes: exit 0, and stdout is 9b's
      transcribe_audio text.
@@ -2097,7 +2108,8 @@ def phase2():
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
         counts = _counts()
-        steps = aux_g["best_logit"].shape[-1]       # decode_scan's n steps
+        steps = aux_g["best_logit"].shape[-1]       # the real decode steps
+        padded = _padded_steps(steps)               # the steps the calls run
         t0 = time.perf_counter()
         tok_c, aux_c = transcribe_tokens_batch(params_cpu, cfg, audio, collect_topk=4,
                                                device="cpu")
@@ -2106,16 +2118,16 @@ def phase2():
         active = aux_c["packed"][..., 0].view(torch.int32) >= 0
         err = (best_g - best_c)[active].abs().max().item()
         log(f"[2] {weights} weights, 2+2 layers f32, {audio.size / 16000:.1f} s audio, "
-            f"{steps} decode steps: {len(tok_g)} tokens; cuda {t_gpu:.2f} s, cpu "
+            f"{steps} decode steps ({padded} run): {len(tok_g)} tokens; cuda {t_gpu:.2f} s, cpu "
             f"{t_cpu:.2f} s; best_logit max abs diff {err:.3g}; launches {json.dumps(counts)}")
-        check(counts["ring_gqa_attention"] == cfg.decoder.layers * steps,
-              f"K1 launches {counts['ring_gqa_attention']} != {cfg.decoder.layers} x {steps}")
+        check(counts["ring_gqa_attention"] == cfg.decoder.layers * padded,
+              f"K1 launches {counts['ring_gqa_attention']} != {cfg.decoder.layers} x {padded}")
         q8 = weights == "q8"
         # the prefill's 38 rows and each decode step's 1 row go to K2
-        want_k2 = 7 * cfg.decoder.layers * (steps + 1) if q8 else 0
+        want_k2 = 7 * cfg.decoder.layers * (padded + 1) if q8 else 0
         check(counts["w8a16_gemv"] >= want_k2 and (q8 or counts["w8a16_gemv"] == 0),
               f"{weights}: K2 launches {counts['w8a16_gemv']}, want >= {want_k2}")
-        check(counts["fused_logits_argmax"] == (steps if q8 else 0),
+        check(counts["fused_logits_argmax"] == (padded if q8 else 0),
               f"{weights}: K3 launches {counts['fused_logits_argmax']}")
         check(tok_g == tok_c, f"{weights}: cuda tokens {tok_g} != cpu tokens {tok_c}")
         check(err <= 1e-3, f"{weights}: best_logit diff {err} > 1e-3")
@@ -2142,11 +2154,30 @@ def _cpu_copy(node):
     return node.cpu()
 
 
+def _padded_steps(steps: int) -> int:
+    """The decode steps the pipeline runs for `steps` real ones: each call's
+    steps padded to its DECODE_BUCKETS width."""
+    from voxtral_tpu_torch.models.pipeline import decode_calls
+    return sum(nb for _, nb in decode_calls(steps))
+
+
+def _key_name(key) -> str:
+    """A program key's entry and its first input's shape (a decode call's
+    [1, steps, D], the prefill's [positions, D], a bucket's rows)."""
+    return f"{key[0]} {'x'.join(map(str, key[1][0][0]))}"
+
+
 def phase3():
+    """Offline serving at full 4B width and depth in bf16: three requests,
+    once eager (step_graphs=False) and twice through the replayed programs
+    (the default on the card: the weights' cached DecodeGraphs), each graph
+    pass bit for bit equal to the eager pass in tokens and best logits.
+    Returns the main path's launches and the requests' records."""
     import torch
     from voxtral_tpu_torch.config import voxtral_4b
-    from voxtral_tpu_torch.models.pipeline import transcribe_tokens_batch
+    from voxtral_tpu_torch.models.pipeline import request_graphs, transcribe_tokens_batch
     from voxtral_tpu_torch.ops import ring_attention as ra
+    from voxtral_tpu_torch.runtime.fleet import state_leaves
     from voxtral_tpu_torch.weights import random_params
     cfg = voxtral_4b(torch.bfloat16, torch.bfloat16)
     t0 = time.perf_counter()
@@ -2157,60 +2188,80 @@ def phase3():
     clips = [(3.0, 11), (8.0, 12), (10.0, 13)]
     audios = [synthetic_audio(sec, seed) for sec, seed in clips]
     passes = []
+    captured = {}
     _reset_counts()                             # main path starts here
-    for rep in range(2):
+    for rep, graphs in enumerate((False, True, True)):
         results = []
         for (sec, _), audio in zip(clips, audios):
             before = ra.LAUNCHES["ring_gqa_attention"]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            tokens, aux = transcribe_tokens_batch(params, cfg, audio,
-                                                  collect_topk=4, device="cuda")
+            tokens, aux = transcribe_tokens_batch(params, cfg, audio, collect_topk=4,
+                                                  device="cuda", step_graphs=graphs)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = ra.LAUNCHES["ring_gqa_attention"] - before
             best = aux["best_logit"][0]
-            steps = best.shape[-1]                  # decode_scan's n steps
+            steps = best.shape[-1]                  # the request's real decode steps
+            padded = _padded_steps(steps)
             active = aux["packed"][0, :, 0].view(torch.int32) >= 0
-            r = dict(pass_=rep, audio_s=sec, decode_steps=steps, tokens=len(tokens),
-                     wall_s=wall, ms_per_step=1e3 * wall / steps, rtf=wall / sec,
-                     launches=launches,
-                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            owner = request_graphs(params, cfg) if graphs else None
+            new = {} if owner is None else {
+                _key_name(k): v for k, v in owner.capture_s.items() if k not in captured}
+            if owner is not None:
+                captured.update(owner.capture_s)
+            r = dict(pass_=rep, step_graphs=graphs, audio_s=sec, decode_steps=steps,
+                     padded_steps=padded, tokens=len(tokens), wall_s=wall,
+                     ms_per_step=1e3 * wall / steps, rtf=wall / sec, launches=launches,
+                     capture_s=new, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
             log(f"[3] request {json.dumps(r)}")
-            check(launches == cfg.decoder.layers * steps,
-                  f"launches {launches} != {cfg.decoder.layers} x {steps}")
+            check(launches == cfg.decoder.layers * padded,
+                  f"launches {launches} != {cfg.decoder.layers} x {padded}")
             check(torch.isfinite(best[active]).all().item(), "non-finite logits")
             check(all(0 <= t < cfg.decoder.vocab_size for t in tokens),
                   "token out of range")
-            results.append((tokens, r))
+            results.append((tokens, best.cpu(), r))
         passes.append(results)
     main_launches = _counts()                       # main path ends here
     check(main_launches["w8a16_gemv"] == main_launches["fused_logits_argmax"] == 0,
           f"bf16 weights with collect_topk launched Q8 or fused-head kernels: "
           f"{main_launches}")
-    for (t1, _), (t2, _) in zip(*passes):
-        check(t1 == t2, "tokens differ between the two passes")
-    # the shortest request: the profiler's own work grows with the events
-    profile_request(params, cfg, audios[0], wall_s=passes[1][0][1]["wall_s"],
-                    steps=passes[1][0][1]["decode_steps"])
-    return main_launches, [r for results in passes for _, r in results]
+    for rep in (1, 2):
+        for (t0_, b0, _), (t1, b1, r) in zip(passes[0], passes[rep]):
+            check(t0_ == t1 and torch.equal(b0, b1),
+                  f"graph pass {rep} != the eager pass at {r['audio_s']} s (tokens equal: "
+                  f"{t0_ == t1})")
+    owner = request_graphs(params, cfg)
+    resident = sum(t.numel() * t.element_size() for t in state_leaves(owner.state)
+                   if t is not None)
+    log(f"[3] graph passes == eager pass bit for bit (tokens, best_logit); the weights' "
+        f"DecodeGraphs: {len(owner._graphs)} keys, captures "
+        f"{json.dumps({_key_name(k): v for k, v in owner.capture_s.items()})} "
+        f"s, resident B = 1 decode state {resident / 2**30:.3f} GiB")
+    # the shortest request, replayed: the profiler's own work grows with the
+    # events, and a replay issues few
+    r = passes[2][0][2]
+    profile_request(params, cfg, audios[0], wall_s=r["wall_s"], steps=r["decode_steps"])
+    return main_launches, [r for results in passes for _, _, r in results]
 
 
 def profile_request(params, cfg, audio, wall_s, steps):
-    """One more run of a request under torch.profiler: device time by
-    kernel, the device's busy share of the unprofiled wall time `wall_s` of
-    the same request (one stream, so kernels do not overlap), and the
-    device time of each stage the pipeline marks with a profiler range
-    (encoder, prefill, decode_scan; `steps` decode steps)."""
+    """One more run of a request, replayed from its captured programs, under
+    torch.profiler: device time by kernel, the device's busy share of the
+    unprofiled wall time `wall_s` of the same replayed request (one stream,
+    so kernels do not overlap), and the device time of each stage the
+    pipeline marks with a profiler range (encoder, prefill, decode_scan;
+    `steps` real decode steps)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from voxtral_tpu_torch.models.pipeline import transcribe_tokens_batch
     stages = ("encoder", "prefill", "decode_scan")
+    padded = _padded_steps(steps)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        transcribe_tokens_batch(params, cfg, audio, device="cuda")
+        transcribe_tokens_batch(params, cfg, audio, collect_topk=4, device="cuda")
         torch.cuda.synchronize()
     # Kernel rows only. The trace also projects CPU op ranges and the
     # stage ranges onto the device timeline (rows named like the op, e.g.
@@ -2242,18 +2293,21 @@ def profile_request(params, cfg, audio, wall_s, steps):
                 busy[e.name] += e.device_time_total
             else:
                 span[e.name] += e.time_range.elapsed_us()
-    log(f"[3] profile {audio.size / 16000:.1f} s request, {steps} decode steps: "
+    log(f"[3] profile {audio.size / 16000:.1f} s replayed request, {steps} decode steps "
+        f"({padded} run): "
         f"device busy {total_us / 1e3:.3f} ms of {wall_s * 1e3:.2f} ms unprofiled wall "
         f"(share {total_us / 1e6 / wall_s:.4f}; request device ms / decode steps "
         f"{total_us / 1e3 / steps:.3f}); ring attention {ring_us / 1e3:.3f} ms "
-        f"({ring_us / (steps * cfg.decoder.layers):.2f} us per launch); nvjet + "
+        f"({ring_us / (padded * cfg.decoder.layers):.2f} us per launch); nvjet + "
         f"splitKreduce (cuBLAS GEMV) rows {gemv_us / 1e3:.3f} ms; op ranges "
         f"on the device timeline (not counted) {projected_us / 1e3:.2f} ms; profiling "
         f"took {time.perf_counter() - t0:.1f} s")
+    # A graph's kernels are not attributed to the range its replay ran in:
+    # the replayed stages (prefill, decode_scan) show only their spans.
     for k in stages:
         log(f"[3]   stage {k}: device busy {busy[k] / 1e3:.3f} ms, device span "
             f"{span[k] / 1e3:.3f} ms (under the profiler)"
-            + (f"; busy per decode step {busy[k] / 1e3 / steps:.3f} ms"
+            + (f"; span per decode step run {span[k] / 1e3 / padded:.3f} ms"
                if k == "decode_scan" else ""))
     for us, count, key in rows[:12]:
         log(f"[3]   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
@@ -2963,8 +3017,9 @@ def phase8(direct):
 
 # The 1 s feed (first, last) profiled in a repeat, per backend: one that
 # steps. At the 2 s interval the bucketed backend steps on even feeds and
-# the fused one on odd feeds.
-STREAM_PROFILED_FEEDS = {"auto": (7, 7), "bucketed": (6, 6), "fused q8+int8+int4": (7, 7)}
+# the fused one on odd feeds; with graphs, a feed whose programs replay.
+STREAM_PROFILED_FEEDS = {"auto": (7, 7), "bucketed": (6, 6), "bucketed graphs": (10, 10),
+                         "fused q8+int8+int4": (7, 7)}
 
 
 def _timed_stream():
@@ -3074,6 +3129,11 @@ def phase9a():
         if sc["backend"] == "bucketed":
             check(isinstance(gpu.mel, NativeMelStream),
                   f"[9a] the bucketed stream's mel is {type(gpu.mel).__name__}")
+            check(gpu._enc.capture and gpu._dec.capture,
+                  "[9a] the bucketed stream does not replay graphs on the card")
+            notes.append(f"bucketed on cuda: {len(gpu._enc._graphs) + len(gpu._dec._graphs)} "
+                         f"program keys, {len(gpu._enc.capture_s) + len(gpu._dec.capture_s)} "
+                         "captured")
         params_cpu = _cpu_copy(params)
         cpu, gaps = on_cpu(params_cpu, **sc)
         del params_cpu
@@ -3164,11 +3224,13 @@ def phase9b(total, q8_params, cfg):
                      "rms_norm", "add_rms_norm"),
             "bucketed": ("ring_gqa_attention", "ring_gqa_attention_enc",
                          "fused_logits_argmax", "rms_norm", "add_rms_norm"),
+            "bucketed graphs": ("ring_gqa_attention", "ring_gqa_attention_enc",
+                                "fused_logits_argmax", "rms_norm", "add_rms_norm"),
             "fused q8+int8+int4": ("ring_gqa_attention_int8", "ring_gqa_attention_enc",
                                    "w8a16_gemv", "fused_logits_argmax", "rms_norm",
                                    "add_rms_norm")}
     text = None
-    results = {}
+    results, eager_counts = {}, []
     for backend in want:
         ids = []
         for rep in range(2):
@@ -3188,8 +3250,9 @@ def phase9b(total, q8_params, cfg):
                 check(s.backend == "fused", f"[9b] auto took {s.backend} on the card")
                 check(text is None or got == text, "[9b] transcribe_audio text differs")
                 text = got
-            elif backend == "bucketed":
-                s = _stream_run(timed, params, cfg, audio, "cuda", backend="bucketed")
+            elif backend.startswith("bucketed"):
+                s = _stream_run(timed, params, cfg, audio, "cuda", backend="bucketed",
+                                step_graphs=None if backend == "bucketed graphs" else False)
             else:
                 s = _stream_run(timed, q8_params, cfg, audio, "cuda", backend="fused",
                                 kv_dtype="int8", enc_kv_dtype="int4")
@@ -3203,17 +3266,27 @@ def phase9b(total, q8_params, cfg):
             check(all(0 <= t < cfg.decoder.vocab_size for t in s.generated_ids),
                   f"[9b] {backend}: token out of range")
             ids.append(s.generated_ids)
-            graphs = s._mgr is not None and s._mgr._graphs is not None
+            graphs = s._mgr._graphs is not None if s._mgr is not None else s._dec.capture
             check(graphs == (backend != "bucketed"),
                   f"[9b] {backend}: step graphs {graphs}")
+            if backend == "bucketed":
+                eager_counts.append(got_counts)
+            elif backend == "bucketed graphs":
+                check(got_counts == eager_counts[rep],
+                      f"[9b] bucketed run {rep}: launches with graphs {got_counts} != eager "
+                      f"{eager_counts[rep]}")
             if s._mgr is not None:
                 s._mgr.close()
+            capture_s = ({} if s._mgr is not None else
+                         {f"{g} {_key_name(k)}": v for g in ("_enc", "_dec")
+                          for k, v in getattr(s, g).capture_s.items()})
             if rep == 0:
                 walls0 = s.walls
                 r = dict(backend=backend, step_graphs=graphs, audio_s=audio_s, wall_s=wall,
                          rtf=wall / audio_s, generated=s.n_generated,
                          ms_per_token=1e3 * wall / max(s.n_generated, 1),
                          feeds=len(s.walls), feed_ms_max=1e3 * max(s.walls),
+                         feed_ms=[1e3 * w for w in s.walls], capture_s=capture_s,
                          stats=s.stats(), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                          launches={k: got_counts[k] for k in want[backend]})
             else:
@@ -3225,6 +3298,9 @@ def phase9b(total, q8_params, cfg):
                          busy_ms=s.busy_ms, busy_share=s.busy_ms / (1e3 * prof_wall),
                          profiled_feeds_wall_ms=1e3 * prof_wall)
         check(ids[0] == ids[1], f"[9b] {backend}: tokens differ between the two runs")
+        if backend == "bucketed graphs":
+            check(ids[0] == results["bucketed"],
+                  "[9b] the bucketed stream's tokens with graphs != eager")
         check(len(ids[0]) > 100, f"[9b] {backend}: only {len(ids[0])} tokens")
         results[backend] = ids[0]
         log(f"[9b] {json.dumps(r)}")

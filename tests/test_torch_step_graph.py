@@ -80,9 +80,16 @@ class _Graph:
         self.fn()
 
 
+def _leaves(x) -> list:
+    """The tensors of a program's outputs (tensors, tuples and dicts)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in (x.values() if isinstance(x, dict) else x) for t in _leaves(v)]
+
+
 def emulate(monkeypatch):
-    """Capture emulated on the CPU (see the module docstring). Returns the
-    list of Captured entries the owners made."""
+    """Capture emulated on the CPU for every owner (see the module
+    docstring). Returns the list of Captured entries the owners made."""
     made = []
 
     def capture(self, run, inputs):
@@ -94,16 +101,14 @@ def emulate(monkeypatch):
                 d.copy_(s)
 
         def replay():
-            tokens, aux = self._in_place(run(*static))
-            outputs[0].copy_(tokens)
-            for k, v in aux.items():
-                outputs[1][k].copy_(v)
+            for d, s in zip(_leaves(outputs), _leaves(self._in_place(run(*static)))):
+                d.copy_(s)
         made.append(sg.Captured(_Graph(replay), static, outputs, launches))
         return made[-1]
 
     monkeypatch.setattr(sg, "check_capturable", lambda state, tp=None: None)
-    monkeypatch.setattr(sg.FleetStepGraphs, "_on_side_stream", lambda self, fn: fn())
-    monkeypatch.setattr(sg.FleetStepGraphs, "_capture", capture)
+    monkeypatch.setattr(sg.StateGraphs, "_on_side_stream", lambda self, fn: fn())
+    monkeypatch.setattr(sg.StateGraphs, "_capture", capture)
     return made
 
 

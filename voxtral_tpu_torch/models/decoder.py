@@ -188,6 +188,20 @@ def init_decode_state(cfg: VoxtralConfig, batch: int = 1, dtype=None,
     )
 
 
+def init_decode_state_(state: DecodeState) -> DecodeState:
+    """init_decode_state's values written into `state`'s own tensors (every
+    tensor keeps its storage). Returns `state`."""
+    for t in (*state.k_ring, *state.v_ring, *state.pending_k, *state.pending_v,
+              state.pending_adv, state.write_ctr, state.pos, state.done):
+        t.zero_()
+    for t in (*(state.k_scale or ()), *(state.v_scale or ())):
+        t.fill_(1.0)
+    state.slot_pos.fill_(SLOT_INVALID)
+    state.pending_sp.fill_(SLOT_INVALID)
+    state.prev_token.fill_(1)                                        # BOS
+    return state
+
+
 def reset_streams(state: DecodeState, mask: torch.Tensor, bos_token: int = 1,
                   reset_write_ctr: bool = False) -> DecodeState:
     """Per-stream decoder reset: pos := 0 and the slot tables invalidated —

@@ -152,6 +152,20 @@ def init_encoder_state(cfg: VoxtralConfig, ring_size: int = 1280,
         next_pos=torch.zeros((batch,), dtype=i32, device=dev))
 
 
+def init_encoder_state_(state: EncoderState) -> EncoderState:
+    """init_encoder_state's values written into `state`'s own tensors (every
+    tensor keeps its storage). Returns `state`."""
+    for t in (*state.k_ring, *state.v_ring, *state.pending_k, *state.pending_v,
+              state.pending_adv, state.write_ctr, state.next_pos):
+        t.zero_()
+    for t in (*(state.k_scale or ()), *(state.v_scale or ()),
+              *(state.pending_ks or ()), *(state.pending_vs or ())):
+        t.fill_(1.0)
+    state.slot_pos.fill_(SLOT_INVALID)
+    state.pending_sp.fill_(SLOT_INVALID)
+    return state
+
+
 def reset_encoder_streams(state: EncoderState, mask: torch.Tensor,
                           reset_write_ctr: bool = False) -> EncoderState:
     """Per-stream encoder reset: invalidate the slot tables, positions to 0.

@@ -13,7 +13,14 @@ the same tokens:
   the decoder prefill and `decode_scan` over the adapter backlog. Row
   counts are padded up to fixed buckets (`MEL_BUCKETS`, `DECODE_BUCKETS`)
   with zero rows: they fix the row count of every product (and so the
-  route of a Q8 product and the order of its sums) whatever the feed sizes;
+  route of a Q8 product and the order of its sums) whatever the feed sizes.
+  Each bucket's program (conv0, conv1, the encoder chunk and the adapter
+  per mel bucket, the prefill, the decode per decode bucket: the JAX
+  stream's jitted programs) is captured as a CUDA graph on CUDA and
+  replayed (runtime/step_graph.py; `StreamConfig.step_graphs=False`:
+  eager), over the stream's encoder and decoder states, which resets
+  write in place. Tails, residual carries, the backlog and the watchdog
+  stay on the host;
 - "fused", a B = 1 `FleetManager` (runtime/manager.py): device mel and one
   fleet step per chunk.
 
@@ -41,16 +48,16 @@ from voxtral_tpu_torch.audio.native import make_mel_stream
 from voxtral_tpu_torch.config import VoxtralConfig
 from voxtral_tpu_torch.models.adapter import adapter_forward
 from voxtral_tpu_torch.models.decoder import (
-    ada_scales, decode_scan, decoder_prefill, init_decode_state,
-    reset_streams, time_conditioning,
+    ada_scales, init_decode_state, reset_streams, time_conditioning,
 )
 from voxtral_tpu_torch.models.encoder import (
-    encoder_incremental, init_encoder_state,
+    encoder_incremental, init_encoder_state, init_encoder_state_,
 )
+from voxtral_tpu_torch.models.pipeline import DECODE_BUCKETS, bucket
 from voxtral_tpu_torch.ops.conv import causal_conv1d
-from voxtral_tpu_torch.ops.linear import embed_lookup
 from voxtral_tpu_torch.runtime.alts import select_alts
 from voxtral_tpu_torch.runtime.manager import FleetManager, _first_tensor
+from voxtral_tpu_torch.runtime.step_graph import DecodeGraphs, StateGraphs, program_key
 from voxtral_tpu_torch.utils import resolve_device
 
 # Shape buckets (mel frames per conv call; decode steps per decode call).
@@ -58,19 +65,11 @@ from voxtral_tpu_torch.utils import resolve_device
 # <= 128 encoder positions (the encoder's pending block), 64 decode steps
 # (the decoder's).
 MEL_BUCKETS = (64, 128, 256)
-DECODE_BUCKETS = (8, 16, 32, 64)
 FIRST_CHUNK_MIN_MEL = 312        # covers the 39-token prompt (voxtral.c:405)
 MAX_DECODE_KV = 2000             # forced-restart KV bound (voxtral.c:412)
 MAX_NON_TEXT_STREAK = 64
 MAX_NO_DECODE_SECONDS = 20
 EMPTY_RESTARTS_FOR_FULL_RESET = 2
-
-
-def _bucket(n: int, buckets) -> int:
-    for b in buckets:
-        if n <= b:
-            return b
-    return buckets[-1]
 
 
 def _conv0_chunk(w, b, x):
@@ -84,16 +83,6 @@ def _conv1_chunk(w, b, x):
     """x: [enc_dim, 2+F] (2-frame tail + F fed outputs, F even). Returns
     [enc_dim, F//2]: stride-2 causal conv + GELU, first output dropped."""
     return F.gelu(causal_conv1d(x, w, b, stride=2))[:, 1:]
-
-
-def _prefill(dec_params, cfg, state, frames, prompt_ids, prev_token, t_ada):
-    embed = dec_params["embed"]
-    prefix = frames.float() + embed_lookup(embed, prompt_ids)
-    state = decoder_prefill(dec_params, cfg, state, prefix[None], t_ada)
-    dev = frames.device
-    return state._replace(
-        prev_token=torch.full((1,), prev_token, dtype=torch.int32, device=dev),
-        done=torch.zeros((1,), dtype=torch.bool, device=dev))
 
 
 @dataclasses.dataclass
@@ -119,6 +108,9 @@ class StreamConfig:
     # "int4" nibble-packs the encoder rings, the serving configuration's
     # (Q8 weights + int8 decoder rings + int4 encoder rings)
     enc_kv_dtype: str | None = None
+    # replay the bucketed programs (and the fused backend's step) as CUDA
+    # graphs: None on CUDA, False eager, True raises off CUDA
+    step_graphs: bool | None = None
 
 
 class VoxStream:
@@ -167,6 +159,10 @@ class VoxStream:
         self.prefill_s = 0.0
         self.monitor_log: list[str] = []
         self.eos_seen = False
+        if sc.step_graphs and dev.type != "cuda":
+            raise ValueError(f"step_graphs=True needs CUDA (device {dev})")
+        self._capture = sc.step_graphs is not False and dev.type == "cuda"
+        self._enc = self._dec = None      # the bucketed programs' owners
         backend = sc.backend
         if backend == "auto":
             backend = "fused" if dev.type == "cuda" else "bucketed"
@@ -218,7 +214,8 @@ class VoxStream:
             continuous=sc.continuous, n_alt=sc.n_alt,
             alt_cutoff=sc.alt_cutoff,
             monitor=lambda sid, sym: self._mon(sym),
-            monitor_slow_ms=sc.monitor_slow_ms, device=self.device)
+            monitor_slow_ms=sc.monitor_slow_ms, device=self.device,
+            step_graphs=sc.step_graphs)
         self._mgr.attach()
         self._drained_ids = 0
 
@@ -247,7 +244,17 @@ class VoxStream:
 
     # -- state management ---------------------------------------------------
 
+    @property
+    def enc_state(self):
+        return self._enc.state
+
+    @property
+    def decode_state(self):
+        return self._dec.state
+
     def _init_audio_state(self):
+        """The host's audio state, and the encoder state at its initial
+        values (written in place after the first time)."""
         cfg, dev = self.cfg, self.device
         mult = cfg.audio.raw_audio_per_token
         self.mel = make_mel_stream(
@@ -259,14 +266,18 @@ class VoxStream:
         self.conv0_tail = torch.zeros((cfg.encoder.dim, 2),
                                       dtype=cfg.compute_dtype, device=dev)
         self.conv0_residual = None        # [enc_dim, 1] tensor or None
-        self.enc_state = init_encoder_state(cfg, ring_size=self.sc.ring_size,
-                                            batch=1, device=dev)
+        if self._enc is None:
+            self._enc = StateGraphs(init_encoder_state(cfg, ring_size=self.sc.ring_size,
+                                                       batch=1, device=dev),
+                                    capture=self._capture)
+        else:
+            init_encoder_state_(self._enc.state)
         self.enc_residual: list = []      # tensors, total rows <= 3
         self.enc_residual_rows = 0
 
     def _init_decoder_state(self):
-        self.decode_state = init_decode_state(self.cfg, batch=1,
-                                              device=self.device)
+        self._dec = DecodeGraphs(init_decode_state(self.cfg, batch=1, device=self.device),
+                                 capture=self._capture)
         self.backlog: list = []           # tensors [n_i, dec_dim]
         self.backlog_rows = 0
         self.decoder_started = False
@@ -281,10 +292,10 @@ class VoxStream:
     def _reset_decoder(self):
         """Hard decoder reset (voxtral.c:778-794): drop backlog + context.
         Ring contents stay: pos := 0 masks them out."""
-        self.decode_state = reset_streams(
+        self._dec.load_state(reset_streams(
             self.decode_state,
             torch.ones((1,), dtype=torch.bool, device=self.device),
-            self.cfg.streaming.bos, reset_write_ctr=True)
+            self.cfg.streaming.bos, reset_write_ctr=True))
         self.backlog = []
         self.backlog_rows = 0
         self.decoder_started = False
@@ -465,6 +476,14 @@ class VoxStream:
         self.encoder_s += time.perf_counter() - t0
         self._mon("▶")
 
+    def _enc_program(self, entry: str, run, *inputs) -> torch.Tensor:
+        """run(*inputs) -> (encoder state, output) as the encoder side's
+        program `entry` (one per input shape), its output copied out of
+        the graphs' pool (the next replay may overwrite it)."""
+        (out,) = self._enc.call(program_key(entry, self.params["decoder"], inputs), run,
+                                inputs)
+        return out.clone()
+
     def _encode_slice(self, mel_slice: np.ndarray):
         """Run one slice (<= MEL_BUCKETS[-1] = 256 frames) through conv
         stem + encoder + adapter."""
@@ -472,13 +491,13 @@ class VoxStream:
         enc = self.params["encoder"]
         self.conv_initialized = True
         m = mel_slice.shape[0]
-        mb = _bucket(m, MEL_BUCKETS)
+        mb = bucket(m, MEL_BUCKETS)
         # conv0: [mel_bins, 2 + mb] with tail prepended, zero pad to bucket
         x = np.zeros((cfg.audio.mel_bins, 2 + mb), np.float32)
         x[:, :2] = self.mel_tail
         x[:, 2:2 + m] = mel_slice.T
-        y = _conv0_chunk(enc["conv0_w"], enc["conv0_b"],
-                         torch.from_numpy(x).to(dev))[:, :m]   # [enc_dim, m]
+        y = self._enc_program("conv0", lambda x: (self.enc_state, _conv0_chunk(
+            enc["conv0_w"], enc["conv0_b"], x)), torch.from_numpy(x).to(dev))[:, :m]
         # update mel tail (last 2 valid frames; shift if m == 1)
         if m >= 2:
             self.mel_tail = mel_slice[-2:].T
@@ -502,23 +521,24 @@ class VoxStream:
             return
         feed = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
-        fb = _bucket(feed_total, MEL_BUCKETS)
+        fb = bucket(feed_total, MEL_BUCKETS)
         x1 = torch.zeros((cfg.encoder.dim, 2 + fb), dtype=feed.dtype, device=dev)
         x1[:, :2] = self.conv0_tail
         x1[:, 2:2 + feed_total] = feed
         self.conv0_tail = feed[:, -2:]
-        c = _conv1_chunk(enc["conv1_w"], enc["conv1_b"], x1)[:, :feed_total // 2]
+        c = self._enc_program("conv1", lambda x: (self.enc_state, _conv1_chunk(
+            enc["conv1_w"], enc["conv1_b"], x)), x1)[:, :feed_total // 2]
         s = feed_total // 2
 
         # incremental encoder (bucketed, masked); h_pad is a fresh
         # contiguous buffer, never the transposed view c.t()
-        sb = _bucket(s, MEL_BUCKETS)
+        sb = bucket(s, MEL_BUCKETS)
         h_pad = torch.zeros((sb, cfg.encoder.dim), dtype=cfg.compute_dtype,
                             device=dev)
         h_pad[:s] = c.t()
-        self.enc_state, enc_out = encoder_incremental(
-            enc, cfg, self.enc_state, h_pad[None], s)
-        enc_out = enc_out[0][:s]
+        enc_out = self._enc_program(
+            "encoder", lambda h, nv: encoder_incremental(enc, cfg, self.enc_state, h, nv),
+            h_pad[None], torch.full((1,), s, dtype=torch.int32, device=dev))[0][:s]
 
         # 4x-downsample alignment with residual carry (voxtral.c:869-934)
         total_enc = self.enc_residual_rows + s
@@ -527,11 +547,12 @@ class VoxStream:
             pieces = list(self.enc_residual)
             take_new = usable - self.enc_residual_rows
             pieces.append(enc_out[:take_new])
-            ab = _bucket(usable, MEL_BUCKETS)
+            ab = bucket(usable, MEL_BUCKETS)
             cpad = torch.zeros((ab, cfg.encoder.dim), dtype=enc_out.dtype,
                                device=dev)
             cpad[:usable] = torch.cat(pieces)
-            adapter = adapter_forward(self.params["adapter"], cfg, cpad)
+            adapter = self._enc_program("adapter", lambda x: (self.enc_state, adapter_forward(
+                self.params["adapter"], cfg, x)), cpad)
             self.backlog.append(adapter[:usable // cfg.downsample])
             self.backlog_rows += usable // cfg.downsample
             leftover = total_enc - usable
@@ -574,10 +595,9 @@ class VoxStream:
                 return
             t0 = time.perf_counter()
             frames = self._take_backlog(lp - 1)
-            self.decode_state = _prefill(
-                self.params["decoder"], cfg, self.decode_state, frames,
-                torch.from_numpy(self.prompt_ids[:lp - 1]).to(dev),
-                int(self.prompt_ids[lp - 1]), self.t_ada)
+            prompt = torch.from_numpy(self.prompt_ids).to(dev)
+            self._dec.prefill(self.params["decoder"], cfg, frames, prompt[:lp - 1],
+                              prompt[lp - 1:], self.t_ada)
             self.decoder_started = True
             self.kv_len = lp - 1
             dt = time.perf_counter() - t0
@@ -593,17 +613,18 @@ class VoxStream:
             topk = self.sc.n_alt - 1 if self.sc.n_alt > 1 else 0
             while self.backlog_rows > 0 and not self.eos_seen:
                 n = min(self.backlog_rows, DECODE_BUCKETS[-1])
-                nb = _bucket(n, DECODE_BUCKETS)
+                nb = bucket(n, DECODE_BUCKETS)
                 frames = self._take_backlog(n)
                 fpad = torch.zeros((nb, cfg.decoder.dim), dtype=frames.dtype,
                                    device=dev)
                 fpad[:n] = frames
-                self.decode_state, tokens, aux = decode_scan(
-                    self.params["decoder"], cfg, self.decode_state,
-                    fpad[None], torch.full((1,), n, dtype=torch.int32, device=dev),
+                tokens, aux = self._dec.scan(
+                    self.params["decoder"], cfg, fpad[None],
+                    torch.full((1,), n, dtype=torch.int32, device=dev),
                     self.t_ada, collect_topk=topk, stop_at_eos=True)
-                # ONE device->host copy per decode call: the tokens, or the
-                # packed aux (tokens + best logit + top-k) with alt-tokens
+                # ONE device->host copy per decode call, read before the next
+                # replay: the tokens, or the packed aux (tokens + best logit
+                # + top-k) with alt-tokens
                 if topk:
                     pk = aux["packed"][0, :n].cpu().numpy()
                     toks = np.ascontiguousarray(pk[:, 0]).view(np.int32)

@@ -68,15 +68,20 @@ Phases (any failure raises and the script exits non-zero):
      and with Q8 weights (quantize_params: K2 and K3 on the card).
   3. Offline serving at full 4B width and depth in bf16: three requests
      (about 3 s, 8 s and 10 s of audio), once eager (step_graphs=False) and
-     twice through the weights' cached DecodeGraphs (runtime/step_graph.py:
-     the prefill and each decode call's bucket captured as CUDA graphs at
-     their second call and replayed); each graph pass must equal the eager
-     pass bit for bit in tokens and best logits, and K1's launch count must
+     twice through a DecodeGraphs leased from the program cache
+     (runtime/step_graph.py: the encoder half at its row rung, the prefill
+     and each decode call's bucket captured as CUDA graphs at their first
+     call and replayed); each graph pass must equal the eager pass bit for
+     bit in tokens and best logits, the first must capture each request's
+     encoder program and the second nothing, and K1's launch count must
      equal 26 x the decode steps run (each call padded to its bucket).
      Logged per request: ms per decode step, RTF, the keys captured and
-     their capture seconds, peak memory; the resident decode state; one
-     more replayed 3 s request under torch.profiler (its kernels and its
-     busy share of the replayed wall).
+     their capture seconds, peak memory; the resident decode state. One
+     3 s request on a tree that shares every tensor but a new layer-0 wq:
+     its own owner, both graph passes equal to its eager pass, the owner
+     freed with the tree (the memory it held logged). One more replayed
+     3 s request under torch.profiler (its kernels and its busy share of
+     the replayed wall).
   4. The fleet step, reduced depth (2+2 layers), full width, f32, B = 2, in
      the three ring modes (float; int8; int8 decoder + int4 encoder) and
      the Q8 mode (Q8 weights with int8 + int4 rings): a bootstrap and 4
@@ -90,8 +95,8 @@ Phases (any failure raises and the script exits non-zero):
      enc_ring 840, each mode (the Q8 mode from quantize_params of the bf16
      tree, last): bootstrap, 5 steps, one step on an aged state (both rings
      read whole), run twice: run 0 eager, run 1 through the step graphs
-     (runtime/step_graph.py: its first step eager, the second captured as
-     a CUDA graph, the rest replayed). The runs' tokens and every state
+     (runtime/step_graph.py: its first step eager and then captured as a
+     CUDA graph, the rest replayed). The runs' tokens and every state
      tensor (rings, scales, slot tables, tails, cursors) must be equal bit
      for bit, with every kernel's launches (and the Q8 large-M route's
      calls) checked per step, a replay counting the launches its graph
@@ -135,7 +140,8 @@ Phases (any failure raises and the script exits non-zero):
      sixteen clips of 4-12 s (four attached after the first poll) fed in
      1 s pieces, finished and drained, three times: step graphs with
      pipeline_steps = 1, the eager step (step_graphs=False) with 1, and
-     step graphs with 2; every stream must finish, every stream of both
+     step graphs with 2, which leases run 0's step graphs and captures
+     nothing; every stream must finish, every stream of both
      graph runs must equal the eager run's, and each run launches K1-int8,
      K1-enc, K2, K3 and K4. Logged: audio-s/s through the manager, steps,
      the poll wall beside stats()'s step_ms_total (the host share), the
@@ -163,6 +169,7 @@ Phases (any failure raises and the script exits non-zero):
      bucketed backend eager (step_graphs=False) and replaying its bucket
      programs as CUDA graphs (the default), and the fused backend on phase
      8b's Q8 tree with int8 + int4 rings, each twice with identical tokens
+     (the second run leasing the first's owners and capturing nothing)
      and its kernels' launches checked (bucketed and auto: K1, K1-enc, K3,
      K4; Q8: K1-int8, K1-enc, K2, K3, K4); the graph bucketed runs must
      equal the eager ones bit for bit in tokens and launches; the fused
@@ -2161,6 +2168,13 @@ def _padded_steps(steps: int) -> int:
     return sum(nb for _, nb in decode_calls(steps))
 
 
+def _state_gib(state) -> float:
+    """The bytes of a state's tensors, in GiB."""
+    from voxtral_tpu_torch.runtime.fleet import state_leaves
+    return sum(t.numel() * t.element_size() for t in state_leaves(state)
+               if t is not None) / 2**30
+
+
 def _key_name(key) -> str:
     """A program key's entry and its first input's shape (a decode call's
     [1, steps, D], the prefill's [positions, D], a bucket's rows)."""
@@ -2232,18 +2246,77 @@ def phase3():
             check(t0_ == t1 and torch.equal(b0, b1),
                   f"graph pass {rep} != the eager pass at {r['audio_s']} s (tokens equal: "
                   f"{t0_ == t1})")
+    for _, _, r in passes[1]:
+        check(any(name.startswith("encoder ") for name in r["capture_s"]),
+              f"[3] the first graph pass did not capture the encoder at {r['audio_s']} s: "
+              f"{sorted(r['capture_s'])}")
+    check(not any(r["capture_s"] for _, _, r in passes[2]),
+          f"[3] the second graph pass captured {[r['capture_s'] for _, _, r in passes[2]]}")
     owner = request_graphs(params, cfg)
     resident = sum(t.numel() * t.element_size() for t in state_leaves(owner.state)
                    if t is not None)
     log(f"[3] graph passes == eager pass bit for bit (tokens, best_logit); the weights' "
-        f"DecodeGraphs: {len(owner._graphs)} keys, captures "
+        f"DecodeGraphs: {len(owner._graphs)} keys, "
+        f"{sum(k[0] == 'encoder' for k in owner._graphs)} of them encoder rungs, captures "
         f"{json.dumps({_key_name(k): v for k, v in owner.capture_s.items()})} "
         f"s, resident B = 1 decode state {resident / 2**30:.3f} GiB")
+    phase3_shared_embed(params, cfg, audios[0], passes[0][0][1])
     # the shortest request, replayed: the profiler's own work grows with the
     # events, and a replay issues few
     r = passes[2][0][2]
     profile_request(params, cfg, audios[0], wall_s=r["wall_s"], steps=r["decode_steps"])
     return main_launches, [r for results in passes for _, _, r in results]
+
+
+def phase3_shared_embed(params, cfg, audio, best):
+    """One more request of `audio` on a tree that shares every tensor of
+    `params` but layer 0's wq (a new seeded one): eager, then twice through
+    the program cache. The tree gets an owner of its own, both graph passes
+    equal its eager pass bit for bit, and its best logits differ from
+    `params`' (`best`). Logged: the memory the new owner holds and frees
+    with the tree."""
+    import gc
+    import weakref
+
+    import torch
+    from voxtral_tpu_torch.models.pipeline import request_graphs, transcribe_tokens_batch
+    lay0 = params["decoder"]["layers"][0]
+    wq = lay0["wq"]
+    g = torch.Generator(device=wq.device).manual_seed(7)
+    tree = {**params, "decoder": {**params["decoder"], "layers": [
+        {**lay0, "wq": (torch.randn(wq.shape, generator=g, device=wq.device)
+                        * wq.float().std()).to(wq.dtype)},
+        *params["decoder"]["layers"][1:]]}}
+    torch.cuda.synchronize()
+    base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    out = []
+    for graphs in (False, None, None):
+        t0 = time.perf_counter()
+        tokens, aux = transcribe_tokens_batch(tree, cfg, audio, collect_topk=4, device="cuda",
+                                              step_graphs=graphs)
+        torch.cuda.synchronize()
+        out.append((tokens, aux["best_logit"][0].cpu(), time.perf_counter() - t0))
+    mine = request_graphs(tree, cfg)
+    check(mine is not None and mine is not request_graphs(params, cfg),
+          "[3] the shared-embed tree has no owner of its own")
+    for rep in (1, 2):
+        check(out[rep][0] == out[0][0] and torch.equal(out[rep][1], out[0][1]),
+              f"[3] shared-embed tree: graph pass {rep} != its eager pass (tokens equal: "
+              f"{out[rep][0] == out[0][0]})")
+    check(not torch.equal(out[0][1], best), "[3] the shared-embed tree gave the same logits")
+    held = (torch.cuda.memory_allocated() - base[0], torch.cuda.memory_reserved() - base[1])
+    keys, capture_s = len(mine._graphs), sum(mine.capture_s.values())
+    gone = weakref.ref(mine)
+    del tree, mine, aux
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(gone() is None, "[3] the shared-embed tree's owner outlived the tree")
+    log(f"[3] shared-embed tree (new layer-0 wq): {len(out[0][0])} tokens, graph passes == "
+        f"eager bit for bit; walls eager / capturing / replayed "
+        f"{out[0][2]:.3f} / {out[1][2]:.3f} / {out[2][2]:.3f} s; its owner: {keys} keys, "
+        f"{capture_s:.2f} s of captures, held {held[0] / 2**30:.3f} GiB allocated and "
+        f"{held[1] / 2**30:.3f} GiB reserved, freed with the tree (reserved now "
+        f"{(torch.cuda.memory_reserved() - base[1]) / 2**30:+.3f} GiB)")
 
 
 def profile_request(params, cfg, audio, wall_s, steps):
@@ -2303,7 +2376,8 @@ def profile_request(params, cfg, audio, wall_s, steps):
         f"on the device timeline (not counted) {projected_us / 1e3:.2f} ms; profiling "
         f"took {time.perf_counter() - t0:.1f} s")
     # A graph's kernels are not attributed to the range its replay ran in:
-    # the replayed stages (prefill, decode_scan) show only their spans.
+    # the replayed stages (encoder, prefill, decode_scan) show only their
+    # spans.
     for k in stages:
         log(f"[3]   stage {k}: device busy {busy[k] / 1e3:.3f} ms, device span "
             f"{span[k] / 1e3:.3f} ms (under the profiler)"
@@ -2428,8 +2502,8 @@ def phase4():
 
 def phase5():
     """The fleet at full 4B width and depth in bf16, B = 16, each mode, run
-    twice: run 0 eager, run 1 through step graphs from its second step (the
-    first eager, the second captured, the rest replayed); the runs' tokens
+    twice: run 0 eager, run 1 through step graphs (the first step eager and
+    then captured, the rest replayed); the runs' tokens
     and every state tensor equal bit for bit. Returns (launches of the
     counted runs per kernel, results)."""
     import torch
@@ -2456,7 +2530,7 @@ def phase5():
     results = {}
     # run 1's step kinds; its steady rate reads the replays among steps 2-4,
     # run 0's the same eager steps
-    kinds = ["eager", "capture", "replay", "replay", "replay"]
+    kinds = ["eager, captured", "replay", "replay", "replay", "replay"]
     for mode, (kv, _) in RING_MODES.items():
         dec_kernel = "ring_gqa_attention" if kv == "float" else "ring_gqa_attention_int8"
         q8 = mode.startswith("q8")
@@ -2522,7 +2596,7 @@ def phase5():
                 params, cfg, state, streams[:, :BOOT_MEL * hop], t_ada),
                 BOOT_MEL // 8 - (lp - 1), layers_e * (BOOT_MEL // CHUNK_MEL), b)
             if rep == 1:
-                graphs = FleetStepGraphs(params, cfg, state)
+                graphs = FleetStepGraphs(state)
             pos = BOOT_MEL * hop
             for step in range(6):
                 if step == 5:
@@ -2536,7 +2610,7 @@ def phase5():
                                                     t_ada)
                 else:
                     def fn():
-                        return graphs.step_masked(pcm, active, forced, t_ada)
+                        return graphs.step_masked(params, cfg, pcm, active, forced, t_ada)
                 state = timed("aged" if step == 5 else f"step{step}", fn, n, layers_e)
             peak = torch.cuda.max_memory_allocated() / 2**30
             tokens = torch.cat(toks, dim=1).cpu()
@@ -2840,8 +2914,8 @@ def phase8b(total, direct):
     audio_s = sum(a.size for a in clips.values()) / cfg.audio.sample_rate
     kernels = ("ring_gqa_attention_int8", "ring_gqa_attention_enc", "w8a16_gemv",
                "fused_logits_argmax", "rms_norm", "add_rms_norm")
-    ids, walls, results = [], [], []
-    profiled = {}
+    ids, walls, results, owners = [], [], [], []
+    profiled, captured = {}, set()
     for rep, depth, graphs in ((0, 1, None), (1, 1, False), (2, 2, None)):
 
         def poll(mgr, rnd):
@@ -2858,6 +2932,9 @@ def phase8b(total, direct):
                            pipeline_steps=depth, step_graphs=graphs)
         check((mgr._graphs is None) == (graphs is False),
               f"[8b] run {rep}: step graphs {mgr._graphs is not None}")
+        owner = mgr._graphs
+        if rep == 2:
+            check(owner is owners[0], "[8b] the pipelined run did not lease run 0's step graphs")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()                          # a main-path run starts
@@ -2877,6 +2954,12 @@ def phase8b(total, direct):
         st = mgr.stats()
         poll_s = sum(w for _, w in run_walls)
         mgr.close()
+        owners.append(owner)
+        if owner is not None:
+            keys = set(owner.capture_s)
+            check(rep != 2 or keys == captured, f"[8b] the pipelined run captured "
+                                                f"{[k[0] for k in keys - captured]}")
+            captured = keys
         r = dict(rep=rep, pipeline_steps=depth, step_graphs=graphs is None,
                  streams=SERVE_B, audio_s=audio_s,
                  wall_s=wall, audio_s_per_s=audio_s / wall, steps=st["steps"],
@@ -2889,7 +2972,9 @@ def phase8b(total, direct):
                  peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                  hbm_used_gb=st.get("hbm_used_gb"), generated=st["generated"],
                  restarts=st["restarts"], launches={k: got[k] for k in kernels},
-                 walls_include_profiler=rep == 2)
+                 walls_include_profiler=rep == 2,
+                 capture_s=None if owner is None else sum(owner.capture_s.values()),
+                 leased_run0=rep == 2)
         log(f"[8b] {json.dumps(r)}")
         results.append(r)
     for rep in (0, 2):
@@ -3038,6 +3123,9 @@ def _timed_stream():
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             self.walls, self.busy_ms = [], 0.0
+            # the step graphs' owners the stream leased (kept past close())
+            self.owners = ([] if not self._capture else [self._mgr._graphs]
+                           if self._mgr is not None else [self._enc, self._dec])
             TimedStream.made.append(self)
 
         def feed(self, samples):
@@ -3266,20 +3354,25 @@ def phase9b(total, q8_params, cfg):
             check(all(0 <= t < cfg.decoder.vocab_size for t in s.generated_ids),
                   f"[9b] {backend}: token out of range")
             ids.append(s.generated_ids)
-            graphs = s._mgr._graphs is not None if s._mgr is not None else s._dec.capture
+            graphs = bool(s.owners)
             check(graphs == (backend != "bucketed"),
                   f"[9b] {backend}: step graphs {graphs}")
+            keys = [set(o.capture_s) for o in s.owners]
+            if rep:
+                check(s.owners == owners and keys == captured,
+                      f"[9b] {backend}: the second run leased its own owners "
+                      f"({s.owners != owners}) or captured "
+                      f"{[sorted(map(_key_name, k - c)) for k, c in zip(keys, captured)]}")
+            owners, captured = s.owners, keys
             if backend == "bucketed":
                 eager_counts.append(got_counts)
             elif backend == "bucketed graphs":
                 check(got_counts == eager_counts[rep],
                       f"[9b] bucketed run {rep}: launches with graphs {got_counts} != eager "
                       f"{eager_counts[rep]}")
-            if s._mgr is not None:
-                s._mgr.close()
-            capture_s = ({} if s._mgr is not None else
-                         {f"{g} {_key_name(k)}": v for g in ("_enc", "_dec")
-                          for k, v in getattr(s, g).capture_s.items()})
+            s.close()                     # its owners go back to the cache
+            capture_s = {f"{i} {_key_name(k) if isinstance(k[1], tuple) else k[0]}": v
+                         for i, o in enumerate(s.owners) for k, v in o.capture_s.items()}
             if rep == 0:
                 walls0 = s.walls
                 r = dict(backend=backend, step_graphs=graphs, audio_s=audio_s, wall_s=wall,
@@ -3287,6 +3380,7 @@ def phase9b(total, q8_params, cfg):
                          ms_per_token=1e3 * wall / max(s.n_generated, 1),
                          feeds=len(s.walls), feed_ms_max=1e3 * max(s.walls),
                          feed_ms=[1e3 * w for w in s.walls], capture_s=capture_s,
+                         owner_state_gib=[_state_gib(o.state) for o in s.owners],
                          stats=s.stats(), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                          launches={k: got_counts[k] for k in want[backend]})
             else:
@@ -3294,7 +3388,8 @@ def phase9b(total, q8_params, cfg):
                 check(s.busy_ms > 0, f"[9b] {backend}: profiled feeds {first}-{last} ran "
                                      "nothing on the card")
                 prof_wall = sum(walls0[first:last + 1])
-                r.update(profiled_feeds=[first, last],
+                r.update(second_run_feed_ms=[1e3 * w for w in s.walls],
+                         second_run_wall_s=wall, profiled_feeds=[first, last],
                          busy_ms=s.busy_ms, busy_share=s.busy_ms / (1e3 * prof_wall),
                          profiled_feeds_wall_ms=1e3 * prof_wall)
         check(ids[0] == ids[1], f"[9b] {backend}: tokens differ between the two runs")

@@ -174,10 +174,10 @@ def test_pipeline_through_graphs_matches_jax(weights, tiny_params, monkeypatch):
     # graphs hold no Python reference
     graphs.close()
     made.clear()
-    n = len(tpipe._GRAPHS)
+    n = len(sg._OWNERS)
     del params, graphs, state
     gc.collect()
-    assert len(tpipe._GRAPHS) == n - 1
+    assert len(sg._OWNERS) == n - 1
 
 
 def cfg_jax():

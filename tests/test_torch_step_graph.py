@@ -156,19 +156,19 @@ def test_step_key_follows_every_static_argument(cfg, params, tiny_cfg):
 
 
 def test_owner_runs_eager_then_captures_once_per_key(cfg, params, t_ada, monkeypatch):
-    """First call at a key eager, the second captured and replayed, later
-    ones replayed; a new chunk is a new key with its own first call."""
+    """First call at a key eager and then captured, later ones replayed; a
+    new chunk is a new key with its own first call."""
     made = emulate(monkeypatch)
     st, pcm = _booted(cfg, params, t_ada)
-    graphs = sg.FleetStepGraphs(params, cfg, st)
+    graphs = sg.FleetStepGraphs(st)
     hop = cfg.audio.hop_length
     for i in range(4):
-        out = graphs.step_pcm(pcm[:, i * T * hop:(i + 1) * T * hop], t_ada)
+        out = graphs.step_pcm(params, cfg, pcm[:, i * T * hop:(i + 1) * T * hop], t_ada)
         assert out[0] is st
     assert len(made) == 1 and made[0].graph.replays == 3
-    graphs.step_pcm(pcm[:, 4 * T * hop:6 * T * hop], t_ada)
-    assert len(made) == 1
-    graphs.step_pcm(pcm[:, 6 * T * hop:8 * T * hop], t_ada)
+    graphs.step_pcm(params, cfg, pcm[:, 4 * T * hop:6 * T * hop], t_ada)
+    assert len(made) == 2 and made[1].graph.replays == 0
+    graphs.step_pcm(params, cfg, pcm[:, 6 * T * hop:8 * T * hop], t_ada)
     assert len(made) == 2 and made[1].graph.replays == 1
     graphs.close()
     assert not graphs._graphs
@@ -185,7 +185,7 @@ def test_emulated_replays_equal_the_eager_steps(cfg, params, t_ada, monkeypatch,
     st_e, pcm = _booted(cfg, params, t_ada, kv, enc_kv)
     st_g = copy.deepcopy(st_e)
     ptrs = [None if t is None else t.data_ptr() for t in tf.state_leaves(st_g)]
-    graphs = sg.FleetStepGraphs(params, cfg, st_g)
+    graphs = sg.FleetStepGraphs(st_g)
     hop = cfg.audio.hop_length
     pos = 0
     for i, n in enumerate((T, T, T, T, 2 * T, 2 * T)):
@@ -206,7 +206,7 @@ def test_emulated_replays_equal_the_eager_steps(cfg, params, t_ada, monkeypatch,
             assert graphs.load_state(_aged(cfg, graphs.state)) is st_g
         st_e, tok_e, _ = tf.fleet_step_masked(params, cfg, st_e, w, None, None, t_ada,
                                               wire_packed=True)
-        st_r, tok_g, _ = graphs.step_masked(w, None, None, t_ada, wire_packed=True)
+        st_r, tok_g, _ = graphs.step_masked(params, cfg, w, None, None, t_ada, wire_packed=True)
         assert st_r is st_g
         assert torch.equal(tok_g, tok_e), i
         _same_state(st_g, st_e)
@@ -276,9 +276,9 @@ def test_replays_count_the_captured_launches():
 def test_capture_is_refused_on_the_cpu_and_with_tp(cfg, params):
     st = tf.init_fleet_state(cfg, 2, device=CPU, **KW)
     with pytest.raises(ValueError, match="CUDA"):
-        sg.FleetStepGraphs(params, cfg, st)
+        sg.FleetStepGraphs(st)
     with pytest.raises(ValueError, match="tp"):
-        sg.FleetStepGraphs(params, cfg, st, tp=object())
+        sg.FleetStepGraphs(st, tp=object())
     kw = dict(batch=2, chunk_tokens=8, dec_ring=256, device=CPU)
     for extra in ({}, {"tp": object()}):
         with pytest.raises(ValueError, match="step_graphs=True"):
@@ -296,7 +296,7 @@ def test_manager_through_graphs_matches_jax(weights, cfgs, monkeypatch):
     twin = Twin(weights["lively"], cfgs, batch=2, chunk_tokens=8, max_chunk_tokens=12,
                 dec_ring=256, continuous=True, monitor=True)
     mgr = twin.t
-    mgr._graphs = sg.FleetStepGraphs(mgr.params, mgr.cfg, mgr.state)
+    mgr._graphs = sg.FleetStepGraphs(mgr.state)
     state = mgr.state
     s0 = twin.attach()
     twin.feed(s0, audio(41, seconds=1.5))

@@ -75,7 +75,9 @@ def transcribe_audio(engine, samples, *, interval: float = 2.0,
     for i in range(0, len(samples), sr):
         s.feed(samples[i:i + sr])
     s.finish()
-    return "".join(s.get()).strip()
+    text = "".join(s.get()).strip()
+    s.close()
+    return text
 
 
 def transcribe(engine, path: str, **kw) -> str:

@@ -10,24 +10,25 @@ ranges "encoder" (stem, encoder, adapter), "prefill" and "decode_scan" mark
 the stages for torch.profiler.
 
 The JAX package compiles the request as one program per audio length, the
-decode a `lax.scan`. Here the encoder runs eagerly, and the prefill and the
-decode run as programs of a `runtime.step_graph.DecodeGraphs` over one
-B = 1 DecodeState: the decode in calls of the pending block's 64 steps, the
-ragged last call padded to the smallest `DECODE_BUCKETS` width that holds
-it (the bucketed stream's rule), so every audio length needs at most four
-decode programs and one prefill program. On CUDA they are captured as CUDA
-graphs and replayed (`step_graphs=False`: eager); the owner and its
-resident state are kept per set of weights and freed with them (the
-counterpart of jit's program cache), and each request resets the state in
-place.
+decode a `lax.scan`. Here the request runs as programs of a
+`runtime.step_graph.DecodeGraphs` over one B = 1 DecodeState: the encoder
+half (conv stem, encoder, adapter) on the mel padded at the end to a rung
+of the `encoder_rows` ladder, the prefill, and the decode in calls of the
+pending block's 64 steps, the ragged last call padded to the smallest
+`DECODE_BUCKETS` width that holds it (the bucketed stream's rule). So a
+length costs at most one new encoder program and four decode programs.
+On CUDA they are captured as CUDA graphs and replayed (`step_graphs=False`:
+the same programs eagerly). Each request leases an owner from the
+process's program cache (`runtime.step_graph.lease`, the counterpart of
+jit's), keyed by every tensor of the weights: its resident state is reset
+in place, and it goes back to the cache when the request ends.
 """
 
 from __future__ import annotations
 
-import weakref
-
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from voxtral_tpu_torch.audio.mel import batch_log_mel, pad_audio_offline
@@ -38,12 +39,17 @@ from voxtral_tpu_torch.models.decoder import (
 )
 from voxtral_tpu_torch.models.encoder import conv_stem, encoder_forward
 from voxtral_tpu_torch.ops.linear import embed_lookup
-from voxtral_tpu_torch.quant import Quantized
 from voxtral_tpu_torch.utils import resolve_device
 
 # Decode steps a decode_scan call runs: at most the pending block's 64, a
 # shorter call padded up to the next width (the bucketed stream's buckets).
 DECODE_BUCKETS = (8, 16, 32, 64)
+# The encoder rows of an offline request's encoder program: the real rows
+# rounded up to a ladder of ENCODER_RUNGS rungs an octave, ENCODER_MIN_ROWS
+# at least. Above that the padding stays under 1/ENCODER_RUNGS of the real
+# rows, and every length has a rung.
+ENCODER_RUNGS = 8
+ENCODER_MIN_ROWS = 64
 
 
 def bucket(n: int, buckets) -> int:
@@ -52,6 +58,40 @@ def bucket(n: int, buckets) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+def encoder_rows(n: int) -> int:
+    """The ladder's rung for n encoder rows: n rounded up to a multiple of
+    2**floor(log2 n) / ENCODER_RUNGS, and at least ENCODER_MIN_ROWS."""
+    if n <= ENCODER_MIN_ROWS:
+        return ENCODER_MIN_ROWS
+    step = (1 << (n.bit_length() - 1)) // ENCODER_RUNGS
+    return -(-n // step) * step
+
+
+def encoder_mel(mel: torch.Tensor, downsample: int):
+    """mel [mel_bins, F] (F even) with zero frames added at the end, so that
+    the encoder half runs a rung of rows. The conv stem gives F/2 rows,
+    and the program drops the front F/2 % downsample of them: the padded
+    length leaves the same remainder, and the rows after it are the rung.
+    The stem, the encoder's attention and RoPE are causal, so the padding
+    reaches no real row. Returns (padded mel, the real adapter rows)."""
+    rows = mel.shape[1] // 2
+    trunc = rows % downsample
+    frames = 2 * (trunc + encoder_rows(rows - trunc))
+    return F.pad(mel, (0, frames - mel.shape[1])), (rows - trunc) // downsample
+
+
+def encode(params, cfg: VoxtralConfig, mel: torch.Tensor) -> torch.Tensor:
+    """The request's encoder half (the JAX request program's): conv stem,
+    the front rows past a multiple of the downsample dropped, encoder,
+    adapter. mel [mel_bins, F] -> adapter rows [F/2 // downsample, D]."""
+    h = conv_stem(params["encoder"], mel)
+    trunc = h.shape[0] % cfg.downsample
+    if trunc:
+        h = h[trunc:]
+    enc = encoder_forward(params["encoder"], cfg, h.to(cfg.compute_dtype))
+    return adapter_forward(params["adapter"], cfg, enc)
 
 
 def decode_calls(n: int) -> list:
@@ -85,20 +125,19 @@ def _pipeline(params, cfg: VoxtralConfig, mel: torch.Tensor, delay_tokens: int,
               collect_topk: int, graphs):
     """mel: [mel_bins, F] (F even) on the device; graphs: a DecodeGraphs
     over a fresh B = 1 state. Returns (tokens [N], aux)."""
+    from voxtral_tpu_torch.runtime.step_graph import program_key
     dev = mel.device
+    dec = params["decoder"]
     with record_function("encoder"):
-        h = conv_stem(params["encoder"], mel)
-        trunc = h.shape[0] % cfg.downsample
-        if trunc:
-            h = h[trunc:]
-        h = h.to(cfg.compute_dtype)
-        enc = encoder_forward(params["encoder"], cfg, h)
-        adapter = adapter_forward(params["adapter"], cfg, enc)   # [n_audio, D]
+        mel, n_audio = encoder_mel(mel, cfg.downsample)
+        (adapter,) = graphs.call(program_key("encoder", dec, (mel,)),
+                                 lambda m: (graphs.state, encode(params, cfg, m)), (mel,))
+        # the real rows, copied out of the graphs' pool before the prefill
+        adapter = adapter[:n_audio].clone()                     # [n_audio, D]
 
     prompt = torch.from_numpy(prompt_token_ids(cfg, delay_tokens)).to(dev)
     lp = prompt.shape[0]
     t_cond = time_conditioning(delay_tokens, cfg.decoder.dim, device=dev)
-    dec = params["decoder"]
     t_ada = ada_scales(dec, t_cond)
 
     with record_function("prefill"):
@@ -121,39 +160,28 @@ def _pipeline(params, cfg: VoxtralConfig, mel: torch.Tensor, delay_tokens: int,
     return torch.cat(toks, dim=1)[0], aux
 
 
-# (id of the weights' embedding table, cfg, device) -> the DecodeGraphs that
-# replays their requests; an entry goes when the table does
-_GRAPHS: dict = {}
-
-
-def _anchor(params) -> torch.Tensor:
-    embed = params["decoder"]["embed"]
-    return embed.q if isinstance(embed, Quantized) else embed
+def _request_state(cfg: VoxtralConfig):
+    return lambda device: init_decode_state(cfg, batch=1, device=device)
 
 
 def request_graphs(params, cfg: VoxtralConfig):
-    """The DecodeGraphs that replays `params`' offline requests on the card,
-    with its resident B = 1 DecodeState (None before the first request)."""
-    anchor = _anchor(params)
-    return _GRAPHS.get((id(anchor), cfg, anchor.device))
+    """A cached DecodeGraphs that replays `params`' offline requests on the
+    card, with its resident B = 1 DecodeState (None before the first
+    request). Bucketed streams of the same weights lease from the same
+    owners."""
+    # runtime imports this module, so it is imported here
+    from voxtral_tpu_torch.runtime.step_graph import DecodeGraphs, cached
+    owners = cached(DecodeGraphs, params, cfg, _request_state(cfg))
+    return owners[0] if owners else None
 
 
 def _request_graphs(params, cfg: VoxtralConfig, device, capture: bool):
     """A DecodeGraphs over a fresh B = 1 state: eager over a new state, or
-    the weights' cached owner with its state reset in place."""
-    # runtime imports this module, so it is imported here
-    from voxtral_tpu_torch.runtime.step_graph import DecodeGraphs
+    an owner leased from the program cache, its state reset in place."""
+    from voxtral_tpu_torch.runtime.step_graph import DecodeGraphs, lease
     if not capture:
         return DecodeGraphs(init_decode_state(cfg, batch=1, device=device), capture=False)
-    anchor = _anchor(params)
-    key = (id(anchor), cfg, anchor.device)
-    graphs = _GRAPHS.get(key)
-    if graphs is None:
-        graphs = _GRAPHS[key] = DecodeGraphs(init_decode_state(cfg, batch=1, device=device))
-        weakref.finalize(anchor, _GRAPHS.pop, key, None)
-    else:
-        init_decode_state_(graphs.state)
-    return graphs
+    return lease(DecodeGraphs, params, cfg, _request_state(cfg), init_decode_state_)
 
 
 @torch.inference_mode()
@@ -164,16 +192,18 @@ def transcribe_tokens_batch(params, cfg: VoxtralConfig, audio: np.ndarray,
     """audio: [N] float32 @16 kHz. Returns (token_ids list[int] (EOS removed),
     aux dict of device tensors). Token ids include control tokens, as in the
     reference's raw `generated` list. `params` must already be on `device`.
-    step_graphs: replay the prefill and decode as CUDA graphs (None: on
-    CUDA; False: eager; True: raises off CUDA). The graphs read `params`'
-    tensors: replace a tensor of the tree, not its values, between
-    requests."""
+    step_graphs: replay the request's programs as CUDA graphs (None: on
+    CUDA; False: the same programs eagerly; True: raises off CUDA). The
+    graphs are cached by the tensors of `params` they read: a tree with any
+    other tensor gets graphs of its own, and values written into the same
+    tensors between requests are read."""
+    # runtime imports this module, so it is imported here
+    from voxtral_tpu_torch.runtime.step_graph import release, wants_capture
     dev = resolve_device(device)
     embed = params["decoder"]["embed"]
     if embed.device.type != dev.type:
         raise ValueError(f"params are on {embed.device}, device is {dev}")
-    if step_graphs and dev.type != "cuda":
-        raise ValueError(f"step_graphs=True needs CUDA (device {dev})")
+    capture = wants_capture(step_graphs, dev)
     if delay_tokens is None:
         delay_tokens = cfg.streaming.delay_tokens
     padded = pad_audio_offline(audio, cfg.audio, cfg.streaming,
@@ -181,10 +211,13 @@ def transcribe_tokens_batch(params, cfg: VoxtralConfig, audio: np.ndarray,
     mel = batch_log_mel(padded, cfg.audio)
     if mel.shape[1] % 2:
         mel = mel[:, 1:]
-    graphs = _request_graphs(params, cfg, embed.device,
-                             step_graphs is not False and dev.type == "cuda")
-    tokens, aux = _pipeline(params, cfg, torch.from_numpy(mel).to(embed.device),
-                            delay_tokens, collect_topk, graphs)
+    graphs = _request_graphs(params, cfg, embed.device, capture)
+    try:
+        tokens, aux = _pipeline(params, cfg, torch.from_numpy(mel).to(embed.device),
+                                delay_tokens, collect_topk, graphs)
+    finally:
+        if graphs.capture:
+            release(graphs)
     out = []
     for t in tokens.cpu().tolist():
         if t < 0:

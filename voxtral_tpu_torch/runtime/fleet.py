@@ -24,7 +24,8 @@ returns their tokens; the collectives are the model code's (models/*.py).
 per-stream tables of the state they are given.
 
 `copy_state` writes one state's values into another's own tensors, and
-`fleet_reset_slots_` resets slots that way: a captured step
+`fleet_reset_slots_` resets slots that way (`init_fleet_state_` the whole
+state): a captured step
 (runtime/step_graph.py) reads and writes the same state tensors on every
 replay, so whatever changes the state between steps must land in them.
 """
@@ -42,10 +43,10 @@ from voxtral_tpu_torch.config import VoxtralConfig
 from voxtral_tpu_torch.models.adapter import adapter_forward
 from voxtral_tpu_torch.models.decoder import (
     SLOT_INVALID, DecodeState, decode_scan, decoder_prefill, init_decode_state,
-    reset_streams,
+    init_decode_state_, reset_streams,
 )
 from voxtral_tpu_torch.models.encoder import (
-    EncoderState, encoder_incremental, init_encoder_state,
+    EncoderState, encoder_incremental, init_encoder_state, init_encoder_state_,
     reset_encoder_streams,
 )
 from voxtral_tpu_torch.ops.linear import embed_lookup
@@ -90,6 +91,16 @@ def init_fleet_state(cfg: VoxtralConfig, batch: int, *, enc_ring: int = 1280,
         mel_tail=torch.zeros((batch, a.mel_bins, 2), **f32),
         conv0_tail=torch.zeros((batch, e.dim, 2), **f32),
         encoder=enc, decode=dec)
+
+
+def init_fleet_state_(state: FleetState) -> FleetState:
+    """init_fleet_state's values written into `state`'s own tensors (every
+    tensor keeps its storage). Returns `state`."""
+    for t in (state.pcm_tail, state.mel_tail, state.conv0_tail):
+        t.zero_()
+    init_encoder_state_(state.encoder)
+    init_decode_state_(state.decode)
+    return state
 
 
 def _batched_causal_conv(x, w, b, stride, discard):

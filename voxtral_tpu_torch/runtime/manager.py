@@ -42,14 +42,18 @@ ahead of the card; the manager keeps it that way:
   a reset queued while a step runs is ordered after it;
 - on CUDA without `tp` the step is replayed as one CUDA graph per shape
   (runtime/step_graph.py, the counterpart of the JAX manager's one
-  compiled program a step): its first call at a shape runs eagerly, the
-  second captures it, later ones replay it, and a new chunk size is a new
-  shape. `self.state` is then the graph's own state, which every replay
-  reads and writes: the per-slot resets write into its tensors
-  (fleet_reset_slots_), and whatever reads it (retained_kv, stats) reads
-  it. `step_graphs=False` runs the eager step instead, the graph's plain
-  version; the CPU and `tp=` (gloo collectives through the host) always
-  run it;
+  compiled program a step): its first call at a shape runs eagerly and
+  captures it, later ones replay it, and a new chunk size is a new shape.
+  The graphs' owner is leased from the process's program cache at
+  construction, its state reset in place (init_fleet_state_), so a
+  manager that follows another of the same weights and shapes replays
+  its captures; close() gives it back, as collecting the manager does,
+  and then the manager polls no more. `self.state` is the owner's state,
+  which every replay reads and writes: the per-slot resets write into its
+  tensors (fleet_reset_slots_), and whatever reads it (retained_kv,
+  stats) reads it. `step_graphs=False` runs the eager step instead, the
+  graph's plain version; the CPU and `tp=` (gloo collectives through the
+  host) always run it;
 - the eager step writes the rings in place and returns the other fields
   new: `self.state` is its return, and resets write into it in place.
 On the CPU the same code runs its copies as plain copies.
@@ -86,6 +90,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -99,10 +104,12 @@ from voxtral_tpu_torch.parallel.sharding import shard_params
 from voxtral_tpu_torch.quant import Quantized
 from voxtral_tpu_torch.runtime.alts import select_alts
 from voxtral_tpu_torch.runtime.fleet import (
-    fleet_reset_slots_, fleet_step_masked, init_fleet_state, pack_wire,
-    pcm_stream_skew,
+    fleet_reset_slots_, fleet_step_masked, init_fleet_state, init_fleet_state_,
+    pack_wire, pcm_stream_skew,
 )
-from voxtral_tpu_torch.runtime.step_graph import FleetStepGraphs
+from voxtral_tpu_torch.runtime.step_graph import (
+    FleetStepGraphs, lease, release, wants_capture,
+)
 from voxtral_tpu_torch.utils import device_memory_gb, resolve_device
 
 MAX_DECODE_KV = 2000              # voxtral.c:412
@@ -218,9 +225,7 @@ class FleetManager:
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        if step_graphs and (dev.type != "cuda" or tp is not None):
-            raise ValueError(f"step_graphs=True needs CUDA and no tp (device {dev}, "
-                             f"tp {tp is not None})")
+        capture = wants_capture(step_graphs, dev, tp)
         p_dev = _first_tensor(params).device
         if p_dev != dev:
             raise RuntimeError(
@@ -259,13 +264,20 @@ class FleetManager:
                                 + self.max_chunk_tokens * 4 + 8)
         # enc_kv_dtype="int4": nibble-packed encoder rings; the serving
         # configuration is Q8 weights + int8 decoder + int4 encoder rings
-        self.state = init_fleet_state(
-            cfg, batch=batch, enc_ring=enc_ring, dec_ring=dec_ring,
-            max_mel_chunk=self.max_chunk_tokens * 8, kv_dtype=kv_dtype,
-            enc_kv_dtype=enc_kv_dtype, device=dev, tp=tp)
-        self._graphs = None
-        if step_graphs is not False and dev.type == "cuda" and tp is None:
-            self._graphs = FleetStepGraphs(params, cfg, self.state)
+        def make_state(device):
+            return init_fleet_state(
+                cfg, batch=batch, enc_ring=enc_ring, dec_ring=dec_ring,
+                max_mel_chunk=self.max_chunk_tokens * 8, kv_dtype=kv_dtype,
+                enc_kv_dtype=enc_kv_dtype, device=device, tp=tp)
+
+        self._graphs = self._give_back = None
+        self._closed = False
+        if capture:
+            self._graphs = lease(FleetStepGraphs, params, cfg, make_state, init_fleet_state_)
+            self._give_back = weakref.finalize(self, release, self._graphs)
+            self.state = self._graphs.state
+        else:
+            self.state = make_state(dev)
         # slot ids are LOCAL rows (the global rows on one process)
         self.slots = [_Slot() for _ in range(self.local_batch)]
         self._pending_resets: dict = {}    # local sid -> full: bool
@@ -329,9 +341,9 @@ class FleetManager:
         """Change the step size (tokens per step). Device state is
         untouched: the pending blocks were sized by max_chunk_tokens at
         init, so any chunk up to that bound folds exactly. With step graphs
-        a new size is a new shape: its first step runs eagerly and its
-        second is captured, as the JAX manager compiles a new program. Must
-        be called between polls (no staged chunk in flight)."""
+        a new size is a new shape: its first step runs eagerly and is
+        captured, as the JAX manager compiles a new program. Must be called
+        between polls (no staged chunk in flight)."""
         if self._staged_next is not None or self._dispatched:
             raise RuntimeError("chunk change with a step in flight")
         if chunk_tokens > self.max_chunk_tokens:
@@ -426,6 +438,9 @@ class FleetManager:
         Multi-process (tp=): every rank must call poll() at the same time;
         whether a step runs is agreed through _any_hosts, so all ranks take
         the same steps even when only one of them has ready streams."""
+        if self._closed:
+            raise RuntimeError("poll() after close(): the step's graphs and state went "
+                               "back to the program cache")
         if self._dispatched or self._staged_next is not None:
             raise RuntimeError(
                 "poll() with a step still in flight: a previous poll aborted "
@@ -459,7 +474,7 @@ class FleetManager:
                           wire_packed=True)
                 if self._graphs is not None:
                     self.state, tokens, aux = self._graphs.step_masked(
-                        st.pcm_dev, None, None, self.t_ada, **kw)
+                        self.params, self.cfg, st.pcm_dev, None, None, self.t_ada, **kw)
                 else:
                     self.state, tokens, aux = fleet_step_masked(
                         self.params, self.cfg, self.state, st.pcm_dev,
@@ -823,12 +838,14 @@ class FleetManager:
         }
 
     def close(self):
-        """Free the step's graphs and their pool. The JAX manager's mesh
-        context has no counterpart here, and the process group belongs to
-        the caller."""
-        if self._graphs is not None:
-            self._graphs.close()
-            self._graphs = None
+        """Give the step's graphs and their state back to the program cache
+        (a later manager on the same weights and shapes replays them), after
+        which the manager polls no more. The JAX manager's mesh context has no
+        counterpart here, and the process group belongs to the caller."""
+        if self._give_back is not None:
+            self._give_back()
+            self._closed = True
+        self._graphs = None
 
     def __enter__(self):
         return self

@@ -16,17 +16,17 @@ key, the program's static arguments, over ONE state that it keeps:
    and occupancy queries, cuBLAS's workspace), so that capture finds them.
    No throw-away warm-up: the program writes the state's rings in place,
    so one would advance the state.
-2. The second call copies the inputs into static buffers and captures the
-   program on the owner's stream, into a memory pool its graphs share. The
-   end of the captured region copies every state field the program returns
-   into the state tensors it read (the rings are already written in place),
-   so each replay advances the same state. Capture runs no kernel: the
-   graph is replayed once at once. `capture_s` keeps each key's capture
-   seconds.
-3. Later calls copy the inputs into the static buffers and replay on the
-   current stream. The outputs returned live in the pool, and the next
-   replay of ANY of the owner's graphs may overwrite them: read them (or
-   queue their copy) before the owner's next call.
+2. The same call then copies the inputs into static buffers and captures
+   the program on the owner's stream, into a memory pool its graphs share,
+   as jit compiles at a shape's first call. The end of the captured region
+   copies every state field the program returns into the state tensors it
+   read (the rings are already written in place), so each replay advances
+   the same state. Capture runs no kernel, so the state stays as the eager
+   run left it. `capture_s` keeps each key's capture seconds.
+3. Later calls, of any lessee, copy the inputs into the static buffers
+   and replay on the current stream. The outputs returned live in the
+   pool, and the next replay of ANY of the owner's graphs may overwrite
+   them: read them (or queue their copy) before the owner's next call.
 
 The first call and the capture run on the owner's side stream (capture
 needs one), so cuBLAS sees one stream for both; replays run on the caller's
@@ -43,12 +43,26 @@ captured, nor can a program on the CPU: both raise (`check_capturable`). A
 capture or replay that fails raises too; nothing falls back to eager.
 
 `FleetStepGraphs` is the fleet step's owner over a FleetState.
+
+The process's program cache (`lease`, `release`), the counterpart of jit's:
+an owner's graphs read the addresses of the weights their first calls
+were given, so owners are cached by `weights_key` (every tensor of the
+weights: its place in the tree, address, shape, strides and dtype), then
+by the owner's class, the config and the owned state's signature (each
+leaf's shape and dtype). A tree whose tensors sit at the same addresses
+shares the owners, and values written in place are read; a tree with any
+other tensor gets owners of its own. A stream, a manager or a request
+leases a free owner (its state reset in place) or captures a new one, and
+gives it back when done: owners live on while idle, and go with the first
+tensor of their weights that goes. No owner refers to the weights.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
+import weakref
 
 import torch
 
@@ -79,6 +93,16 @@ def check_capturable(state, tp=None) -> None:
     if dev.type != "cuda":
         raise ValueError(f"a program on {dev} cannot be captured: CUDA graphs need CUDA "
                          "tensors")
+
+
+def wants_capture(step_graphs, device: torch.device, tp=None) -> bool:
+    """Whether an entry point captures its programs: `step_graphs` None does
+    on CUDA without `tp`, False never does, True does and raises where
+    capture cannot run."""
+    if step_graphs and (device.type != "cuda" or tp is not None):
+        raise ValueError(f"step_graphs=True needs CUDA and no tp (device {device}, "
+                         f"tp {tp is not None})")
+    return step_graphs is not False and device.type == "cuda" and tp is None
 
 
 def is_q8(dec_params) -> bool:
@@ -136,6 +160,106 @@ def add_launches(change: dict) -> None:
         COUNTERS[i][name] += d
 
 
+def _weight_tensors(node, path=()):
+    """(path, tensor) of every tensor of a weight tree in tree order, a
+    Quantized leaf's codes and scales as two."""
+    if isinstance(node, torch.Tensor):
+        return [(path, node)]
+    if isinstance(node, Quantized):
+        return [(path + ("q",), node.q), (path + ("s",), node.s)]
+    if isinstance(node, dict):
+        items = node.items()
+    elif isinstance(node, (list, tuple)):
+        items = enumerate(node)
+    else:
+        return []
+    return [pt for k, child in items for pt in _weight_tensors(child, path + (k,))]
+
+
+def _key(tensors) -> tuple:
+    return tuple((path, t.device, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for path, t in tensors)
+
+
+def weights_key(params) -> tuple:
+    """What captured programs read of `params`: each tensor's place in the
+    tree, device, address, shape, strides and dtype."""
+    return _key(_weight_tensors(params))
+
+
+def state_signature(state) -> tuple:
+    """The owned state's static shape: its type and each leaf's shape and
+    dtype (None for an absent field)."""
+    return (type(state).__name__, tuple(None if t is None else (tuple(t.shape), t.dtype)
+                                        for t in state_leaves(state)))
+
+
+# weights_key -> {(owner class, cfg, state signature): [owners]}; an entry
+# goes when any tensor of its weights does
+_OWNERS: dict = {}
+_LOCK = threading.RLock()          # a finalizer may run inside a lease
+
+
+def _drop(wkey) -> None:
+    with _LOCK:
+        _OWNERS.pop(wkey, None)
+
+
+def _slot(cls, params, cfg, make_state, *, create: bool):
+    """The list of cached owners for this key (None if absent and not
+    `create`), and the device of the weights."""
+    tensors = _weight_tensors(params)
+    dev = tensors[0][1].device
+    sig = state_signature(make_state(torch.device("meta")))
+    wkey = _key(tensors)
+    owners = _OWNERS.get(wkey)
+    if owners is None:
+        if not create:
+            return None, dev
+        owners = _OWNERS[wkey] = {}
+        for _, t in tensors:
+            weakref.finalize(t, _drop, wkey)
+    if not create:
+        return owners.get((cls, cfg, sig)), dev
+    return owners.setdefault((cls, cfg, sig), []), dev
+
+
+def lease(cls, params, cfg, make_state, reset):
+    """A free owner of class `cls` (StateGraphs or a subclass) for programs
+    that read `params` under `cfg`, leased until `release`: a cached one
+    whose state `make_state` would shape alike, its state reset in place by
+    `reset(state)`, else a new one over `make_state(device)`, added to the
+    cache. Two live leases never share an owner."""
+    with _LOCK:
+        owners, dev = _slot(cls, params, cfg, make_state, create=True)
+        owner = next((o for o in owners if not o.leased), None)
+        if owner is None:
+            # normal tensors, which lessees in and out of inference mode
+            # (requests, streams) may all write in place; so are the
+            # static buffers of the owner's graphs
+            with torch.inference_mode(False), torch.no_grad():
+                owner = cls(make_state(dev))
+            owners.append(owner)
+        else:
+            reset(owner.state)
+        owner.leased = True
+        return owner
+
+
+def release(*owners) -> None:
+    """Give leased owners back to the cache."""
+    with _LOCK:
+        for owner in owners:
+            owner.leased = False
+
+
+def cached(cls, params, cfg, make_state) -> list:
+    """The cached owners (leased or free) that `lease` would pick from."""
+    with _LOCK:
+        owners, _ = _slot(cls, params, cfg, make_state, create=False)
+        return list(owners or ())
+
+
 @dataclasses.dataclass
 class Captured:
     """One captured program: its graph, static inputs and outputs, and the
@@ -171,8 +295,9 @@ class StateGraphs:
             check_capturable(state, tp)
         self.state = state
         self.capture = capture
+        self.leased = False             # held by a lessee (see `lease`)
         self.capture_s = {}             # key -> seconds its capture took
-        self._graphs = {}               # key -> Captured, None after the eager call
+        self._graphs = {}               # key -> Captured
         self._stream = None             # the side stream, at first use
         self._pool = None
 
@@ -180,16 +305,15 @@ class StateGraphs:
         """run(*inputs)'s outputs; its state lands in the owned state."""
         if not self.capture:
             return self._in_place(run(*inputs))
-        if key not in self._graphs:
-            out = self._on_side_stream(lambda: self._in_place(run(*inputs)))
-            self._graphs[key] = None
-            return out
-        entry = self._graphs[key]
-        if entry is None:
-            t0 = time.perf_counter()
-            entry = self._graphs[key] = self._capture(run, inputs)
-            self.capture_s[key] = time.perf_counter() - t0
-        return entry.replay(inputs)
+        entry = self._graphs.get(key)
+        if entry is not None:
+            return entry.replay(inputs)
+        out = self._on_side_stream(lambda: self._in_place(run(*inputs)))
+        t0 = time.perf_counter()
+        with torch.inference_mode(False), torch.no_grad():     # see `lease`
+            self._graphs[key] = self._capture(run, inputs)
+        self.capture_s[key] = time.perf_counter() - t0
+        return out
 
     def load_state(self, state):
         """Copy `state`'s values into the owned state's tensors."""
@@ -240,29 +364,28 @@ class FleetStepGraphs(StateGraphs):
     the steps start from, and afterwards read it as `self.state` (each step
     also returns it). A state made elsewhere (e.g. by `age_fleet_state`)
     enters through `load_state`. Steps take what `fleet_step_masked` and
-    `fleet_step_pcm` take after the state."""
+    `fleet_step_pcm` take, the state left out. The weights come with each
+    call and the owner keeps no reference to them, but its graphs read the
+    tensors of the first calls': one owner serves one set of weights."""
 
-    def __init__(self, params, cfg, state: FleetState, *, tp=None):
-        super().__init__(state, tp=tp)
-        self.params, self.cfg = params, cfg
-
-    def step_masked(self, pcm, active, forced_tokens, t_ada, *, stop_at_eos: bool = False,
-                    collect_topk: int = 0, wire_packed: bool = False):
+    def step_masked(self, params, cfg, pcm, active, forced_tokens, t_ada, *,
+                    stop_at_eos: bool = False, collect_topk: int = 0,
+                    wire_packed: bool = False):
         """`fleet_step_masked` on the owned state; returns (state, tokens,
         aux). With `wire_packed`, `active` and `forced_tokens` are ignored."""
         kw = dict(stop_at_eos=stop_at_eos, collect_topk=collect_topk,
                   wire_packed=wire_packed)
-        key = step_key("fleet_step_masked", self.params, self.state, pcm, **kw)
+        key = step_key("fleet_step_masked", params, self.state, pcm, **kw)
         return self._step(key, lambda p, a, f, t: fleet_step_masked(
-            self.params, self.cfg, self.state, p, a, f, t, **kw),
-            (pcm, active, forced_tokens, t_ada))
+            params, cfg, self.state, p, a, f, t, **kw), (pcm, active, forced_tokens, t_ada))
 
-    def step_pcm(self, pcm, t_ada, *, stop_at_eos: bool = False, collect_topk: int = 0):
+    def step_pcm(self, params, cfg, pcm, t_ada, *, stop_at_eos: bool = False,
+                 collect_topk: int = 0):
         """`fleet_step_pcm` on the owned state; returns (state, tokens, aux)."""
         kw = dict(stop_at_eos=stop_at_eos, collect_topk=collect_topk)
-        key = step_key("fleet_step_pcm", self.params, self.state, pcm, **kw)
+        key = step_key("fleet_step_pcm", params, self.state, pcm, **kw)
         return self._step(key, lambda p, t: fleet_step_pcm(
-            self.params, self.cfg, self.state, p, t, **kw), (pcm, t_ada))
+            params, cfg, self.state, p, t, **kw), (pcm, t_ada))
 
     def _step(self, key, run, inputs):
         return (self.state, *self.call(key, run, inputs))
@@ -272,10 +395,11 @@ class DecodeGraphs(StateGraphs):
     """The prompt's prefill and `decode_scan` over one DecodeState, one
     program per key (`program_key`, `scan_key`): the decoder programs of the
     offline pipeline and of the bucketed VoxStream (the JAX stream's
-    `_prefill` and `_decode`). The weights come with each call and the owner
+    `_prefill` and `_decode`); the offline request's encoder runs through
+    `call` on the same owner. The weights come with each call and the owner
     keeps no reference to them, but its graphs read the tensors of the
-    first call's: one owner serves one set of weights. A scan runs at most
-    the state's pending block of steps. `state` is a DecodeState."""
+    first calls': one owner serves one set of weights (`lease`). A scan runs
+    at most the state's pending block of steps. `state` is a DecodeState."""
 
     def prefill(self, dec_params, cfg, frames, prompt_ids, prev_token, t_ada) -> None:
         """`pipeline.prefill_prompt` on the owned state, which must be fresh

@@ -18,9 +18,12 @@ the same tokens:
   per mel bucket, the prefill, the decode per decode bucket: the JAX
   stream's jitted programs) is captured as a CUDA graph on CUDA and
   replayed (runtime/step_graph.py; `StreamConfig.step_graphs=False`:
-  eager), over the stream's encoder and decoder states, which resets
-  write in place. Tails, residual carries, the backlog and the watchdog
-  stay on the host;
+  eager), over an encoder and a decoder state, which resets write in
+  place. The two owners of those programs are leased from the process's
+  program cache at construction (a stream that follows another on the
+  same weights replays its captures) and given back by `close()` or when
+  the stream is collected. Tails, residual carries, the backlog and the
+  watchdog stay on the host;
 - "fused", a B = 1 `FleetManager` (runtime/manager.py): device mel and one
   fleet step per chunk.
 
@@ -39,6 +42,7 @@ import dataclasses
 import sys
 import time
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -48,7 +52,7 @@ from voxtral_tpu_torch.audio.native import make_mel_stream
 from voxtral_tpu_torch.config import VoxtralConfig
 from voxtral_tpu_torch.models.adapter import adapter_forward
 from voxtral_tpu_torch.models.decoder import (
-    ada_scales, init_decode_state, reset_streams, time_conditioning,
+    ada_scales, init_decode_state, init_decode_state_, reset_streams, time_conditioning,
 )
 from voxtral_tpu_torch.models.encoder import (
     encoder_incremental, init_encoder_state, init_encoder_state_,
@@ -57,7 +61,9 @@ from voxtral_tpu_torch.models.pipeline import DECODE_BUCKETS, bucket
 from voxtral_tpu_torch.ops.conv import causal_conv1d
 from voxtral_tpu_torch.runtime.alts import select_alts
 from voxtral_tpu_torch.runtime.manager import FleetManager, _first_tensor
-from voxtral_tpu_torch.runtime.step_graph import DecodeGraphs, StateGraphs, program_key
+from voxtral_tpu_torch.runtime.step_graph import (
+    DecodeGraphs, StateGraphs, lease, program_key, release, wants_capture,
+)
 from voxtral_tpu_torch.utils import resolve_device
 
 # Shape buckets (mel frames per conv call; decode steps per decode call).
@@ -159,10 +165,9 @@ class VoxStream:
         self.prefill_s = 0.0
         self.monitor_log: list[str] = []
         self.eos_seen = False
-        if sc.step_graphs and dev.type != "cuda":
-            raise ValueError(f"step_graphs=True needs CUDA (device {dev})")
-        self._capture = sc.step_graphs is not False and dev.type == "cuda"
+        self._capture = wants_capture(sc.step_graphs, dev)
         self._enc = self._dec = None      # the bucketed programs' owners
+        self._give_back = None            # returns leased owners to the cache
         backend = sc.backend
         if backend == "auto":
             backend = "fused" if dev.type == "cuda" else "bucketed"
@@ -182,8 +187,31 @@ class VoxStream:
         if backend == "fused":
             self._init_fused()
         else:
+            self._enc = self._owner(StateGraphs, lambda d: init_encoder_state(
+                cfg, ring_size=sc.ring_size, batch=1, device=d), init_encoder_state_)
+            self._dec = self._owner(DecodeGraphs, lambda d: init_decode_state(
+                cfg, batch=1, device=d), init_decode_state_)
+            if self._capture:
+                self._give_back = weakref.finalize(self, release, self._enc, self._dec)
             self._init_audio_state()
             self._init_decoder_state()
+
+    def _owner(self, cls, make_state, reset):
+        """An owner of bucketed programs over a fresh state: leased from the
+        program cache when they are captured, else a private eager one."""
+        if self._capture:
+            return lease(cls, self.params, self.cfg, make_state, reset)
+        return cls(make_state(self.device), capture=False)
+
+    def close(self):
+        """Give the stream's programs back to the program cache (a later
+        stream on the same weights replays them); the stream takes no more
+        audio. Collecting the stream does the same."""
+        self.finished = True
+        if self._give_back is not None:
+            self._give_back()
+        if self._mgr is not None:
+            self._mgr.close()
 
     def _ada(self):
         return ada_scales(self.params["decoder"], time_conditioning(
@@ -204,6 +232,13 @@ class VoxStream:
         The manager's finished stream equals the batch pipeline's tokens,
         so the fused stream's equal the bucketed path's."""
         cfg, sc = self.cfg, self.sc
+        me = weakref.ref(self)      # the manager must not keep the stream alive
+
+        def monitor(sid, sym):
+            stream = me()
+            if stream is not None:
+                stream._mon(sym)
+
         self._mgr = FleetManager(
             self.params, cfg, batch=1, tokenizer=self.tok,
             chunk_tokens=self._interval_tokens(sc.interval),
@@ -213,7 +248,7 @@ class VoxStream:
             dec_ring=cfg.decoder.window + self._FUSED_CHUNK_CAP,
             continuous=sc.continuous, n_alt=sc.n_alt,
             alt_cutoff=sc.alt_cutoff,
-            monitor=lambda sid, sym: self._mon(sym),
+            monitor=monitor,
             monitor_slow_ms=sc.monitor_slow_ms, device=self.device,
             step_graphs=sc.step_graphs)
         self._mgr.attach()
@@ -253,8 +288,7 @@ class VoxStream:
         return self._dec.state
 
     def _init_audio_state(self):
-        """The host's audio state, and the encoder state at its initial
-        values (written in place after the first time)."""
+        """The host's audio state at its initial values."""
         cfg, dev = self.cfg, self.device
         mult = cfg.audio.raw_audio_per_token
         self.mel = make_mel_stream(
@@ -266,18 +300,10 @@ class VoxStream:
         self.conv0_tail = torch.zeros((cfg.encoder.dim, 2),
                                       dtype=cfg.compute_dtype, device=dev)
         self.conv0_residual = None        # [enc_dim, 1] tensor or None
-        if self._enc is None:
-            self._enc = StateGraphs(init_encoder_state(cfg, ring_size=self.sc.ring_size,
-                                                       batch=1, device=dev),
-                                    capture=self._capture)
-        else:
-            init_encoder_state_(self._enc.state)
         self.enc_residual: list = []      # tensors, total rows <= 3
         self.enc_residual_rows = 0
 
     def _init_decoder_state(self):
-        self._dec = DecodeGraphs(init_decode_state(self.cfg, batch=1, device=self.device),
-                                 capture=self._capture)
         self.backlog: list = []           # tensors [n_i, dec_dim]
         self.backlog_rows = 0
         self.decoder_started = False
@@ -309,6 +335,7 @@ class VoxStream:
     def _reset_full(self):
         """Full stream reset (voxtral.c:797-824): mel/conv/encoder/decoder."""
         self._init_audio_state()
+        init_encoder_state_(self._enc.state)
         self._reset_decoder()
         self.empty_restarts = 0
 
@@ -477,11 +504,14 @@ class VoxStream:
         self._mon("▶")
 
     def _enc_program(self, entry: str, run, *inputs) -> torch.Tensor:
-        """run(*inputs) -> (encoder state, output) as the encoder side's
-        program `entry` (one per input shape), its output copied out of
-        the graphs' pool (the next replay may overwrite it)."""
-        (out,) = self._enc.call(program_key(entry, self.params["decoder"], inputs), run,
-                                inputs)
+        """run(encoder state, *inputs) -> (encoder state, output) as the
+        encoder side's program `entry` (one per input shape), its output
+        copied out of the graphs' pool (the next replay may overwrite it).
+        The program refers to the owner, not to the stream: the owner
+        outlives it."""
+        owner = self._enc
+        (out,) = owner.call(program_key(entry, self.params["decoder"], inputs),
+                            lambda *xs: run(owner.state, *xs), inputs)
         return out.clone()
 
     def _encode_slice(self, mel_slice: np.ndarray):
@@ -496,7 +526,7 @@ class VoxStream:
         x = np.zeros((cfg.audio.mel_bins, 2 + mb), np.float32)
         x[:, :2] = self.mel_tail
         x[:, 2:2 + m] = mel_slice.T
-        y = self._enc_program("conv0", lambda x: (self.enc_state, _conv0_chunk(
+        y = self._enc_program("conv0", lambda st, x: (st, _conv0_chunk(
             enc["conv0_w"], enc["conv0_b"], x)), torch.from_numpy(x).to(dev))[:, :m]
         # update mel tail (last 2 valid frames; shift if m == 1)
         if m >= 2:
@@ -526,7 +556,7 @@ class VoxStream:
         x1[:, :2] = self.conv0_tail
         x1[:, 2:2 + feed_total] = feed
         self.conv0_tail = feed[:, -2:]
-        c = self._enc_program("conv1", lambda x: (self.enc_state, _conv1_chunk(
+        c = self._enc_program("conv1", lambda st, x: (st, _conv1_chunk(
             enc["conv1_w"], enc["conv1_b"], x)), x1)[:, :feed_total // 2]
         s = feed_total // 2
 
@@ -537,7 +567,7 @@ class VoxStream:
                             device=dev)
         h_pad[:s] = c.t()
         enc_out = self._enc_program(
-            "encoder", lambda h, nv: encoder_incremental(enc, cfg, self.enc_state, h, nv),
+            "encoder", lambda st, h, nv: encoder_incremental(enc, cfg, st, h, nv),
             h_pad[None], torch.full((1,), s, dtype=torch.int32, device=dev))[0][:s]
 
         # 4x-downsample alignment with residual carry (voxtral.c:869-934)
@@ -551,8 +581,9 @@ class VoxStream:
             cpad = torch.zeros((ab, cfg.encoder.dim), dtype=enc_out.dtype,
                                device=dev)
             cpad[:usable] = torch.cat(pieces)
-            adapter = self._enc_program("adapter", lambda x: (self.enc_state, adapter_forward(
-                self.params["adapter"], cfg, x)), cpad)
+            ada = self.params["adapter"]
+            adapter = self._enc_program("adapter", lambda st, x: (st, adapter_forward(
+                ada, cfg, x)), cpad)
             self.backlog.append(adapter[:usable // cfg.downsample])
             self.backlog_rows += usable // cfg.downsample
             leftover = total_enc - usable

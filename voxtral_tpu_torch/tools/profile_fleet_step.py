@@ -4,7 +4,7 @@ fleet step of chip_smoke.py phase 5 (full 4B width and depth in bf16, B =
 dec_ring 2048, enc_ring 840) is bootstrapped and stepped WARM times, then
 one more step runs under torch.profiler (CUDA activity only); then the same
 on a fresh state through step graphs (runtime/step_graph.py: the first step
-eager, the second captured, the third and the profiled one replayed).
+eager and captured, the later and the profiled one replayed).
 Printed for the float mode and the Q8 + int8 + int4 mode, one JSON line
 each: the unprofiled wall of the step before, the device busy ms, and the
 ms and launches of each kernel group (torch's elementwise kernels, its
@@ -123,7 +123,7 @@ def profile_step(params, cfg, state, pcm, active, forced, t_ada, graphs=None):
         if graphs is None:
             fleet_step_masked(params, cfg, state, pcm, active, forced, t_ada)
         else:
-            graphs.step_masked(pcm, active, forced, t_ada)
+            graphs.step_masked(params, cfg, pcm, active, forced, t_ada)
         if cuda:
             torch.cuda.synchronize()
     return device_rows(prof)
@@ -131,8 +131,8 @@ def profile_step(params, cfg, state, pcm, active, forced, t_ada, graphs=None):
 
 def _profile_chain(params, cfg, t_ada, streams, mode, replayed):
     """Bootstrap, WARM timed steps, then one profiled step; `replayed`: the
-    steps through step graphs (the first eager, the second captured, the
-    rest and the profiled one replayed)."""
+    steps through step graphs (the first eager and captured, the rest and
+    the profiled one replayed)."""
     from voxtral_tpu_torch.runtime import fleet as fl
     from voxtral_tpu_torch.runtime.step_graph import FleetStepGraphs
     hop = cfg.audio.hop_length
@@ -142,7 +142,7 @@ def _profile_chain(params, cfg, t_ada, streams, mode, replayed):
     forced = torch.full((b, CHUNK_MEL // 8), -1, dtype=torch.int32, device=dev)
     state = init_state(cfg, b, mode, dev)
     state, _, _ = fl.fleet_bootstrap_pcm(params, cfg, state, streams[:, :BOOT_MEL * hop], t_ada)
-    graphs = FleetStepGraphs(params, cfg, state) if replayed else None
+    graphs = FleetStepGraphs(state) if replayed else None
     pos, wall = BOOT_MEL * hop, None
     for _ in range(WARM):
         pcm = streams[:, pos:pos + CHUNK_MEL * hop]
@@ -151,7 +151,7 @@ def _profile_chain(params, cfg, t_ada, streams, mode, replayed):
         if graphs is None:
             state, _, _ = fl.fleet_step_masked(params, cfg, state, pcm, active, forced, t_ada)
         else:
-            graphs.step_masked(pcm, active, forced, t_ada)
+            graphs.step_masked(params, cfg, pcm, active, forced, t_ada)
         sync()
         wall = time.perf_counter() - t0
         pos += CHUNK_MEL * hop
